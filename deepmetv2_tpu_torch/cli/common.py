@@ -1,0 +1,91 @@
+"""Shared CLI plumbing for the evaluate / predict drivers (the JAX
+package's ``cli/common.py``, plus ``apply_graph_mode`` from its
+``cli/train.py`` until the train CLI is ported)."""
+
+from __future__ import annotations
+
+import dataclasses
+import os.path as osp
+import sys
+
+import torch
+
+from deepmetv2_tpu_torch.config import Config
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device an entry point runs on.  CUDA unless the caller asks for
+    the CPU; a missing GPU is an error, never a silent CPU run.  TF32 is
+    switched off for matmuls and convolutions: the JAX reference computes
+    in full f32, and TF32 keeps about three decimal digits."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name}: no CUDA GPU is available "
+                         "(torch.cuda.is_available() is False); pass "
+                         "--device cpu to run on the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def load_run_config(ckpt_dir: str) -> Config:
+    """Defaults with the model sections of the run's ``config.json``
+    grafted in; graph and data sections are re-derived by each CLI from
+    its own input."""
+    path = osp.join(ckpt_dir, "config.json")
+    if not osp.exists(path):
+        print(f"note: no {path}; interpreting the checkpoint with DEFAULT "
+              "model hyperparameters", file=sys.stderr)
+        return Config()
+    with open(path) as f:
+        run = Config.from_json(f.read())
+    return dataclasses.replace(Config(), model=run.model, drn=run.drn)
+
+
+def apply_graph_mode(cfg: Config, args, all_events) -> Config:
+    """Resolve ``--graph_mode`` into the config.  Window mode sizes the halo
+    from ``all_events`` (max eta-sorted neighbour span, rounded up to a
+    multiple of 64, at least 64)."""
+    from deepmetv2_tpu_torch.data.sorting import required_halo_events
+
+    if args.graph_mode != "window":
+        raise SystemExit(f"--graph_mode {args.graph_mode}: not ported yet; "
+                         "use --graph_mode window")
+    halo = required_halo_events(all_events, cfg.graph.delta_r)
+    halo = max(64, -(-halo // 64) * 64)
+    return dataclasses.replace(
+        cfg, graph=dataclasses.replace(cfg.graph, mode="window",
+                                       window_halo=halo, presorted=False))
+
+
+def load_model_for_eval(args, cfg: Config, ckpt_dir: str, device):
+    """(model, eval_step) from a native ``.ckpt`` of the JAX package."""
+    from deepmetv2_tpu_torch.models.graph_met import GraphMET
+    from deepmetv2_tpu_torch.train.checkpoint import load_checkpoint
+    from deepmetv2_tpu_torch.train.step import make_eval_step
+
+    if args.model != "graphmet":
+        raise SystemExit(f"--model {args.model}: not ported yet")
+    if args.from_torch:
+        raise SystemExit("--from_torch: not ported yet")
+    payload = load_checkpoint(osp.join(ckpt_dir, args.restore_file + ".ckpt"))
+    model = GraphMET(cfg.model, device=device)
+    model.params_from_jax(payload["params"], payload["bn_state"]).eval()
+    return model, make_eval_step(cfg)
+
+
+def add_common_flags(p) -> None:
+    """The flags evaluate and predict share with the JAX package's CLIs,
+    plus ``--device``."""
+    p.add_argument("--restore_file", default="best")
+    p.add_argument("--data", default="data")
+    p.add_argument("--ckpts", default="ckpts")
+    p.add_argument("--synthetic", type=int, default=0, metavar="N")
+    p.add_argument("--batch_size", type=int, default=40)  # evaluate.py:176
+    p.add_argument("--graph_mode", choices=["window", "neighbor_list"],
+                   default="window")
+    p.add_argument("--from_torch", default=None)
+    p.add_argument("--model", choices=["graphmet", "drn"], default="graphmet")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        "PyTorch versions of the kernels)")

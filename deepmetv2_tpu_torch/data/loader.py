@@ -1,0 +1,145 @@
+"""Dataset and loaders (the JAX package's ``data/loader.py``; reference
+model/data_loader.py:21-111).
+
+* the seed-42 split is drawn with ``torch.randperm`` on a generator of its
+  own, the same indices as the reference's ``random_split`` under
+  ``torch.manual_seed``;
+* ``sequential`` batches keep the reference's order and composition,
+  ``bucketed`` groups events by size bucket;
+* collated host batches are memoized after the first full pass.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from deepmetv2_tpu_torch.data import ingest
+from deepmetv2_tpu_torch.data.batching import (EventBatch, bucket_for,
+                                               collate, to_device)
+
+Event = Tuple[np.ndarray, np.ndarray]
+
+
+def _torch_random_split_indices(n: int, n_val: int, seed: int
+                                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Train / validation indices of the reference's seeded random_split
+    (model/data_loader.py:103-104)."""
+    gen = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(n, generator=gen).numpy()
+    return perm[: n - n_val], perm[n - n_val:]
+
+
+class METDataset:
+    """In-memory event store (reference METDataset, model/data_loader.py)."""
+
+    def __init__(self, data_dir: Optional[str] = None,
+                 events: Optional[Sequence[Event]] = None):
+        if events is not None:
+            self._events: List[Event] = list(events)
+        else:
+            assert data_dir is not None
+            files = ingest.discover_npz(data_dir)
+            if not files:
+                raise FileNotFoundError(f"no npz slices under {data_dir}")
+            self._events = []
+            for f in files:
+                self._events.extend(ingest.load_npz_events(f))
+
+    def __len__(self) -> int:
+        return len(self._events)
+
+    def __getitem__(self, i: int) -> Event:
+        return self._events[i]
+
+
+class PaddedLoader:
+    """Iterates host EventBatches over a subset of a dataset (the JAX
+    package's presorting modes are not ported yet; the steps sort)."""
+
+    def __init__(
+        self,
+        dataset: METDataset,
+        indices: Sequence[int],
+        batch_size: int,
+        buckets: Sequence[int],
+        mode: str = "sequential",
+        pad_batches: bool = True,
+        cache: bool = True,
+    ):
+        self.dataset = dataset
+        self.indices = np.asarray(indices, dtype=np.int64)
+        self.batch_size = batch_size
+        self.buckets = tuple(buckets)
+        assert mode in ("sequential", "bucketed")
+        self.mode = mode
+        self.pad_batches = pad_batches
+        self._batches = self._plan()
+        self._cache: Optional[List[EventBatch]] = [] if cache else None
+
+    def _plan(self) -> List[np.ndarray]:
+        bs = self.batch_size
+        if self.mode == "sequential":
+            return [self.indices[i:i + bs]
+                    for i in range(0, len(self.indices), bs)]
+        # bucketed: per-bucket batch lists, interleaved round-robin so the
+        # BatchNorm statistics do not drift toward the last bucket
+        by_bucket: Dict[int, List[int]] = {}
+        for idx in self.indices:
+            n = self.dataset[int(idx)][0].shape[0]
+            by_bucket.setdefault(bucket_for(n, self.buckets), []).append(int(idx))
+        per_bucket = [[np.asarray(idxs[i:i + bs], dtype=np.int64)
+                       for i in range(0, len(idxs), bs)]
+                      for _, idxs in sorted(by_bucket.items())]
+        plans = []
+        for i in range(max(len(p) for p in per_bucket) if per_bucket else 0):
+            for p in per_bucket:
+                if i < len(p):
+                    plans.append(p[i])
+        return plans
+
+    def __len__(self) -> int:
+        return len(self._batches)
+
+    def __iter__(self) -> Iterator[EventBatch]:
+        if self._cache:
+            yield from self._cache
+            return
+        pad_to = self.batch_size if self.pad_batches else None
+        built: List[EventBatch] = []
+        for batch_idx in self._batches:
+            events = [self.dataset[int(i)] for i in batch_idx]
+            b = collate(events, buckets=self.buckets, pad_events_to=pad_to)
+            built.append(b)
+            yield b
+        if self._cache is not None:      # publish only complete epochs
+            self._cache = built
+
+
+def device_feed(loader, device) -> Iterator[EventBatch]:
+    """Host batches → device batches, one at a time."""
+    for b in loader:
+        yield to_device(b, device)
+
+
+def fetch_dataloader(
+    data_dir: Optional[str] = None,
+    batch_size: int = 6,
+    validation_split: float = 0.2,
+    events: Optional[Sequence[Event]] = None,
+    seed: int = 42,
+    buckets: Sequence[int] = (128, 256, 512, 1024, 2048, 4096, 8192),
+    mode: str = "sequential",
+) -> Dict[str, PaddedLoader]:
+    """Reference ``fetch_dataloader`` (model/data_loader.py:92-111): seeded
+    80/20 split, unshuffled batches."""
+    dataset = METDataset(data_dir=data_dir, events=events)
+    n = len(dataset)
+    n_val = int(np.floor(validation_split * n))
+    train_idx, val_idx = _torch_random_split_indices(n, n_val, seed)
+    return {
+        "train": PaddedLoader(dataset, train_idx, batch_size, buckets, mode),
+        "test": PaddedLoader(dataset, val_idx, batch_size, buckets, mode),
+    }

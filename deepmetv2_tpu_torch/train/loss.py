@@ -1,0 +1,31 @@
+"""The loss (the JAX package's ``train/loss.py``; reference
+model/net.py:49-62).  The reference's ``scatter_add(w·p, batch)`` is a
+masked sum over the node axis of the padded batch."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from deepmetv2_tpu_torch.data.batching import EventBatch
+
+
+def weighted_met(weights: torch.Tensor, batch: EventBatch
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-event ``Σ_i w_i·px_i`` and ``Σ_i w_i·py_i`` over real nodes (the
+    MET estimate is the negative of this sum)."""
+    zero = torch.zeros((), dtype=weights.dtype, device=weights.device)
+    metx = torch.where(batch.mask, weights * batch.x_cont[..., 0], zero).sum(1)
+    mety = torch.where(batch.mask, weights * batch.x_cont[..., 1], zero).sum(1)
+    return metx, mety
+
+
+def loss_fn(weights: torch.Tensor, batch: EventBatch) -> torch.Tensor:
+    """0.5 · mean over real events of (METx + genMETx)² + (METy + genMETy)²;
+    events with ``num_valid == 0`` (batch padding) are left out."""
+    metx, mety = weighted_met(weights, batch)
+    per_event = (metx + batch.y[:, 0]) ** 2 + (mety + batch.y[:, 1]) ** 2
+    ev = batch.num_valid > 0
+    total = torch.where(ev, per_event, torch.zeros_like(per_event)).sum()
+    return 0.5 * total / torch.clamp(ev.sum(), min=1)
