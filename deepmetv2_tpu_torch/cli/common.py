@@ -1,6 +1,6 @@
-"""Shared CLI plumbing for the evaluate / predict drivers (the JAX
-package's ``cli/common.py``, plus ``apply_graph_mode`` from its
-``cli/train.py`` until the train CLI is ported)."""
+"""Shared CLI plumbing for the train / evaluate / predict entry points
+(the JAX package's ``cli/common.py``, plus ``apply_graph_mode`` from its
+``cli/train.py``, which all three use)."""
 
 from __future__ import annotations
 
@@ -42,20 +42,27 @@ def load_run_config(ckpt_dir: str) -> Config:
     return dataclasses.replace(Config(), model=run.model, drn=run.drn)
 
 
-def apply_graph_mode(cfg: Config, args, all_events) -> Config:
+def apply_graph_mode(cfg: Config, args, all_events, presorted: bool = False,
+                     loaders=None) -> Config:
     """Resolve ``--graph_mode`` into the config.  Window mode sizes the halo
-    from ``all_events`` (max eta-sorted neighbour span, rounded up to a
-    multiple of 64, at least 64)."""
+    (the max neighbour span, rounded up to a multiple of 64, at least 64):
+    with ``loaders``, on the row order they emit (needed for cell-sorted
+    loaders); otherwise from ``all_events`` in eta order.  ``presorted``
+    only when the loaders presort (``presort_eta=True``): the steps then
+    trust the batch order and do not sort."""
     from deepmetv2_tpu_torch.data.sorting import required_halo_events
 
     if args.graph_mode != "window":
         raise SystemExit(f"--graph_mode {args.graph_mode}: not ported yet; "
                          "use --graph_mode window")
-    halo = required_halo_events(all_events, cfg.graph.delta_r)
+    spans = [ld.required_halo(cfg.graph.delta_r)
+             for ld in (loaders or []) if len(ld)]
+    halo = (max(spans) if spans
+            else required_halo_events(all_events, cfg.graph.delta_r))
     halo = max(64, -(-halo // 64) * 64)
     return dataclasses.replace(
         cfg, graph=dataclasses.replace(cfg.graph, mode="window",
-                                       window_halo=halo, presorted=False))
+                                       window_halo=halo, presorted=presorted))
 
 
 def load_model_for_eval(args, cfg: Config, ckpt_dir: str, device):

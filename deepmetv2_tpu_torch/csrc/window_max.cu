@@ -1,7 +1,9 @@
-// Windowed EdgeConv-max aggregation for Hopper (sm_90a).
+// Windowed EdgeConv-max aggregation for Hopper (sm_90a): forward and
+// backward.
 //
-// Replaces the Pallas TPU kernel deepmetv2_tpu/ops/pallas/edgeconv_window.py
-// (_fwd_kernel, reached through window_max and window_edgeconv_linear_pallas).
+// FORWARD.  Replaces the Pallas TPU kernel
+// deepmetv2_tpu/ops/pallas/edgeconv_window.py (_fwd_kernel, reached through
+// window_max and window_edgeconv_linear_pallas).
 // Computes, for c [B,N,H] f32 and pos [B,N,2] f32 (padded rows at 1e9):
 //
 //   m[b,i,h] = max { c[b,w,h] : w in [i-halo, i+halo] ∩ [0,N),
@@ -31,6 +33,34 @@
 // before the wrapper discards them (PERF.md).
 // The TPU kernel's lane packing, supertile DMA and eta/phi chunk prune are
 // TPU mechanics and are not carried over.
+//
+// BACKWARD.  Replaces the Pallas TPU kernel _bwd_kernel of the same file
+// (reached through _window_max_bwd, the custom VJP of window_max).
+// Computes, for the forward's c and m, the gradient g of m, and pos:
+//
+//   dc[b,s,h] = sum over q in [s-halo, s+halo] ∩ [0,N) with adj(q,s) of
+//               [c[b,s,h] == m[b,q,h]] * g[b,q,h]
+//
+// so every tied source gets the full gradient of its query (the TPU
+// kernel's rule).  Where m is not finite it counts as +inf with g = 0 (the
+// sentinels of _window_max_bwd).  Adjacency is recomputed from pos through
+// the forward's window_adjacent, so forward and backward agree on every
+// pair.  It matches ops/window.py:window_max_bwd_torch bit for bit: each
+// source adds its terms in ascending query order, starting from 0.
+//
+// Design: the forward's shape with the roles swapped.  A block takes ROWS
+// source rows, a warp ROWS/WARPS of them with lane = feature; the block
+// walks the query window [t0-halo, t0+ROWS+halo) in 32-row chunks of m, g
+// and coordinates staged in shared memory; a ballot gives the chunk's
+// adjacency and the warp walks its set bits in ascending q.  No atomics;
+// every output is written once.
+//
+// What bounds it on the card: it must read c, m, g and pos once and write
+// dc once (8.5 MB at B=8, N=2048, H=32: 2.5 us at 3.35 TB/s); the data
+// needs one predicate per (source, window query) pair plus a compare and an
+// add per adjacent pair and feature.  So the bound is bytes; like the
+// forward, the kernel itself is limited by instruction throughput (times
+// in PERF.md).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -129,6 +159,97 @@ window_max_fwd_kernel(const float* __restrict__ c,
   }
 }
 
+template <int NH>  // ceil(H / 32) features per lane
+__global__ void __launch_bounds__(WARPS * 32)
+window_max_bwd_kernel(const float* __restrict__ c,
+                      const float* __restrict__ pos,
+                      const float* __restrict__ m,
+                      const float* __restrict__ g,
+                      float* __restrict__ dc, int N, int H, int halo,
+                      float r2) {
+  extern __shared__ float smem[];
+  float* m_s = smem;                  // [CHUNK][H]
+  float* g_s = smem + CHUNK * H;      // [CHUNK][H]
+  float* e_s = g_s + CHUNK * H;       // [CHUNK]
+  float* p_s = e_s + CHUNK;           // [CHUNK]
+
+  constexpr int SPW = ROWS / WARPS;   // source rows per warp
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * ROWS;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const size_t base = static_cast<size_t>(b) * N * H;
+  const float* pb = pos + static_cast<size_t>(b) * N * 2;
+
+  float se[SPW], sp[SPW], cv[SPW][NH], acc[SPW][NH];
+#pragma unroll
+  for (int j = 0; j < SPW; ++j) {
+    const int s = t0 + warp * SPW + j;
+    se[j] = s < N ? pb[2 * s] : 0.f;
+    sp[j] = s < N ? pb[2 * s + 1] : 0.f;
+#pragma unroll
+    for (int t = 0; t < NH; ++t) {
+      const int h = lane + 32 * t;
+      cv[j][t] = (s < N && h < H) ? c[base + static_cast<size_t>(s) * H + h]
+                                  : 0.f;
+      acc[j][t] = 0.f;
+    }
+  }
+
+  const int lo = max(0, t0 - halo);
+  const int hi = min(N, t0 + ROWS + halo);
+  for (int q0 = lo; q0 < hi; q0 += CHUNK) {
+    const int rows = min(CHUNK, hi - q0);
+    __syncthreads();  // the previous chunk has been consumed
+    const size_t off = base + static_cast<size_t>(q0) * H;
+    for (int k = threadIdx.x; k < rows * H; k += WARPS * 32) {
+      const float mv = m[off + k];
+      const bool fin = fabsf(mv) < CUDART_INF_F;  // false for inf and NaN
+      m_s[k] = fin ? mv : CUDART_INF_F;
+      g_s[k] = fin ? g[off + k] : 0.f;
+    }
+    if (threadIdx.x < rows) {
+      e_s[threadIdx.x] = pb[2 * (q0 + threadIdx.x)];
+      p_s[threadIdx.x] = pb[2 * (q0 + threadIdx.x) + 1];
+    }
+    __syncthreads();
+
+    const int q = q0 + lane;  // this lane's query row
+#pragma unroll
+    for (int j = 0; j < SPW; ++j) {
+      const int s = t0 + warp * SPW + j;
+      if (s >= N) break;  // warp-uniform
+      const bool in = lane < rows && q >= s - halo && q <= s + halo;
+      const bool adj =
+          in && window_adjacent(e_s[lane], p_s[lane], se[j], sp[j], r2);
+      unsigned bits = __ballot_sync(0xffffffffu, adj);
+      while (bits) {  // ascending q
+        const int k = __ffs(bits) - 1;
+        bits &= bits - 1;
+        const float* mrow = m_s + k * H;
+        const float* grow = g_s + k * H;
+#pragma unroll
+        for (int t = 0; t < NH; ++t) {
+          const int h = lane + 32 * t;
+          if (h < H && cv[j][t] == mrow[h]) acc[j][t] += grow[h];
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < SPW; ++j) {
+    const int s = t0 + warp * SPW + j;
+    if (s >= N) break;
+    float* o = dc + base + static_cast<size_t>(s) * H;
+#pragma unroll
+    for (int t = 0; t < NH; ++t) {
+      const int h = lane + 32 * t;
+      if (h < H) o[h] = acc[j][t];
+    }
+  }
+}
+
 template <int NH>
 cudaError_t launch(const float* c, const float* pos, float* out, int B, int N,
                    int H, int halo, float r2, cudaStream_t stream) {
@@ -137,6 +258,18 @@ cudaError_t launch(const float* c, const float* pos, float* out, int B, int N,
                       sizeof(float);
   window_max_fwd_kernel<NH><<<grid, WARPS * 32, smem, stream>>>(
       c, pos, out, N, H, halo, r2);
+  return cudaGetLastError();
+}
+
+template <int NH>
+cudaError_t launch_bwd(const float* c, const float* pos, const float* m,
+                       const float* g, float* dc, int B, int N, int H,
+                       int halo, float r2, cudaStream_t stream) {
+  const dim3 grid((N + ROWS - 1) / ROWS, B);
+  const size_t smem = (2 * static_cast<size_t>(CHUNK) * H + 2 * CHUNK) *
+                      sizeof(float);
+  window_max_bwd_kernel<NH><<<grid, WARPS * 32, smem, stream>>>(
+      c, pos, m, g, dc, N, H, halo, r2);
   return cudaGetLastError();
 }
 
@@ -153,6 +286,20 @@ extern "C" int window_max_fwd(const float* c, const float* pos, float* out,
     case 2: return launch<2>(c, pos, out, B, N, H, halo, r2, stream);
     case 3: return launch<3>(c, pos, out, B, N, H, halo, r2, stream);
     case 4: return launch<4>(c, pos, out, B, N, H, halo, r2, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// C interface of the backward; the same contract as window_max_fwd.
+extern "C" int window_max_bwd(const float* c, const float* pos, const float* m,
+                              const float* g, float* dc, int B, int N, int H,
+                              int halo, float r2, cudaStream_t stream) {
+  if (B <= 0 || N <= 0) return 0;
+  switch ((H + 31) / 32) {
+    case 1: return launch_bwd<1>(c, pos, m, g, dc, B, N, H, halo, r2, stream);
+    case 2: return launch_bwd<2>(c, pos, m, g, dc, B, N, H, halo, r2, stream);
+    case 3: return launch_bwd<3>(c, pos, m, g, dc, B, N, H, halo, r2, stream);
+    case 4: return launch_bwd<4>(c, pos, m, g, dc, B, N, H, halo, r2, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -6,6 +6,8 @@ model/data_loader.py:21-111).
   ``torch.manual_seed``;
 * ``sequential`` batches keep the reference's order and composition,
   ``bucketed`` groups events by size bucket;
+* window mode may presort each batch on the host (``presort_eta``), in eta
+  order or in cell order (``presort_mode``, data/sorting.py);
 * collated host batches are memoized after the first full pass.
 """
 
@@ -16,7 +18,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from deepmetv2_tpu_torch.data import ingest
+from deepmetv2_tpu_torch.data import ingest, sorting
 from deepmetv2_tpu_torch.data.batching import (EventBatch, bucket_for,
                                                collate, to_device)
 
@@ -56,8 +58,7 @@ class METDataset:
 
 
 class PaddedLoader:
-    """Iterates host EventBatches over a subset of a dataset (the JAX
-    package's presorting modes are not ported yet; the steps sort)."""
+    """Iterates host EventBatches over a subset of a dataset."""
 
     def __init__(
         self,
@@ -68,6 +69,9 @@ class PaddedLoader:
         mode: str = "sequential",
         pad_batches: bool = True,
         cache: bool = True,
+        presort_eta: bool = False,
+        presort_mode: str = "eta",
+        presort_r: float = 0.4,
     ):
         self.dataset = dataset
         self.indices = np.asarray(indices, dtype=np.int64)
@@ -76,6 +80,14 @@ class PaddedLoader:
         assert mode in ("sequential", "bucketed")
         self.mode = mode
         self.pad_batches = pad_batches
+        # window mode: sort each batch on the host at collation time (the
+        # config's graph.presorted then tells the steps not to sort);
+        # 'eta' = plain eta sort, 'cell' = eta-quantile block x phi order
+        if presort_mode not in ("eta", "cell"):
+            raise ValueError(f"presort_mode {presort_mode!r}: 'eta' or 'cell'")
+        self.presort_eta = presort_eta
+        self.presort_mode = presort_mode
+        self.presort_r = presort_r
         self._batches = self._plan()
         self._cache: Optional[List[EventBatch]] = [] if cache else None
 
@@ -103,6 +115,21 @@ class PaddedLoader:
     def __len__(self) -> int:
         return len(self._batches)
 
+    def required_halo(self, r: float) -> int:
+        """Smallest window halo valid for every batch this loader yields,
+        in the row order it emits.  Builds the batch cache on first use."""
+        if self._cache is not None and not self._cache and len(self):
+            print(f"sizing window halo: collating {len(self)} batches "
+                  f"({len(self.indices)} events) on the host (cached)")
+        worst = 0
+        for b in self:
+            if self.presort_eta and self.presort_mode == "cell":
+                worst = max(worst, sorting.required_span_blocks(b, r))
+            else:   # eta order, presorted or sorted by the step
+                worst = max(worst, sorting.required_halo_arrays(
+                    b.x_cont[..., 3], b.mask, r))
+        return int(worst)
+
     def __iter__(self) -> Iterator[EventBatch]:
         if self._cache:
             yield from self._cache
@@ -112,6 +139,10 @@ class PaddedLoader:
         for batch_idx in self._batches:
             events = [self.dataset[int(i)] for i in batch_idx]
             b = collate(events, buckets=self.buckets, pad_events_to=pad_to)
+            if self.presort_eta:
+                b = (sorting.cell_sort_batch(b, r=self.presort_r)
+                     if self.presort_mode == "cell"
+                     else sorting.presort_batch(b))
             built.append(b)
             yield b
         if self._cache is not None:      # publish only complete epochs
@@ -132,6 +163,9 @@ def fetch_dataloader(
     seed: int = 42,
     buckets: Sequence[int] = (128, 256, 512, 1024, 2048, 4096, 8192),
     mode: str = "sequential",
+    presort_eta: bool = False,
+    presort_mode: str = "eta",
+    presort_r: float = 0.4,
 ) -> Dict[str, PaddedLoader]:
     """Reference ``fetch_dataloader`` (model/data_loader.py:92-111): seeded
     80/20 split, unshuffled batches."""
@@ -139,7 +173,11 @@ def fetch_dataloader(
     n = len(dataset)
     n_val = int(np.floor(validation_split * n))
     train_idx, val_idx = _torch_random_split_indices(n, n_val, seed)
+    kw = dict(presort_eta=presort_eta, presort_mode=presort_mode,
+              presort_r=presort_r)
     return {
-        "train": PaddedLoader(dataset, train_idx, batch_size, buckets, mode),
-        "test": PaddedLoader(dataset, val_idx, batch_size, buckets, mode),
+        "train": PaddedLoader(dataset, train_idx, batch_size, buckets, mode,
+                              **kw),
+        "test": PaddedLoader(dataset, val_idx, batch_size, buckets, mode,
+                             **kw),
     }

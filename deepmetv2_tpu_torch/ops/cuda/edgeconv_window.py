@@ -1,12 +1,14 @@
-"""Windowed EdgeConv with the aggregation as a Hopper kernel
-(``csrc/window_max.cu``), the counterpart of the JAX package's
+"""Windowed EdgeConv with the aggregation and its gradient as Hopper
+kernels (``csrc/window_max.cu``), the counterpart of the JAX package's
 ``ops/pallas/edgeconv_window.py``.
 
-``window_max`` launches the kernel for a CUDA tensor and takes the plain
-version (ops/window.py:window_max_torch) for a CPU tensor.  The GEMMs stay
-``torch.matmul``, as the JAX package leaves them to XLA.  Forward only:
-the backward kernel and its ``torch.autograd.Function`` come with the
-training slice.
+``window_max`` and ``window_max_bwd`` launch their kernels for a CUDA
+tensor and take the plain versions (ops/window.py: ``window_max_torch``,
+``window_max_bwd_torch``) for a CPU tensor; a CUDA tensor never reaches a
+plain version, and a failed build or launch raises.  ``WindowMax`` is the
+``torch.autograd.Function`` that pairs them, with the TPU kernel's tie rule
+(every tied source gets the full gradient).  The GEMMs stay
+``torch.matmul``, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -17,26 +19,60 @@ from typing import Optional
 import torch
 
 from deepmetv2_tpu_torch.ops.window import (WindowGraph, combine,
-                                            edgeconv_terms, window_max_torch)
+                                            edgeconv_terms,
+                                            window_max_bwd_torch,
+                                            window_max_torch)
 
 PAD_POS = 1e9   # coordinate of padded rows: never adjacent to a real row
-MAX_H = 128     # the kernel keeps ceil(H/32) <= 4 features per lane
+MAX_H = 128     # the kernels keep ceil(H/32) <= 4 features per lane
 
-_fn = None
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "window_max_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "window_max_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+}
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(name: str):
+    if name not in _fns:
         from deepmetv2_tpu_torch.ops.cuda import build
 
-        fn = build.load("window_max").window_max_fwd
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_void_p]
+        fn = getattr(build.load("window_max"), name)
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
+
+
+def _check(name: str, c: torch.Tensor, *others: torch.Tensor) -> None:
+    """Raise on what the kernels do not take: c [B, N, H] f32 with
+    0 < H <= MAX_H; pos [B, N, 2] and further [B, N, H] tensors, all f32 on
+    c's device."""
+    B, N, H = c.shape
+    if not (0 < H <= MAX_H):
+        raise ValueError(f"{name}: H={H} outside 1..{MAX_H}")
+    if any(t.dtype != torch.float32 for t in (c,) + others):
+        raise TypeError(f"{name}: tensors must be float32")
+    for t, shape in zip(others, [(B, N, 2)] + [(B, N, H)] * len(others)):
+        if tuple(t.shape) != shape or t.device != c.device:
+            raise ValueError(f"{name}: {tuple(t.shape)} on {t.device} does "
+                             f"not match c {tuple(c.shape)} on {c.device}")
+
+
+def _on_cpu(name: str, c: torch.Tensor) -> bool:
+    if c.device.type == "cpu":
+        return True
+    if c.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {c.device}")
+    return False
+
+
+def _launch(name: str, c: torch.Tensor, *args) -> None:
+    with torch.cuda.device(c.device):
+        err = _kernel(name)(*args, torch.cuda.current_stream(c.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 def window_max(c: torch.Tensor, pos: torch.Tensor, r2: float,
@@ -44,38 +80,59 @@ def window_max(c: torch.Tensor, pos: torch.Tensor, r2: float,
     """``m[b,i,:] = max c[b,w,:]`` over w in [i−halo, i+halo] ∩ [0, N) with
     ``(η_i−η_w)² + (φ_i−φ_w)² < r2``; −inf where there is none.  ``pos`` is
     ``[B, N, 2]`` with padded rows at ``PAD_POS`` (padded rows are adjacent
-    to each other, at distance 0; the caller masks them)."""
-    if c.device.type == "cpu":
+    to each other, at distance 0; the caller masks them).  Not
+    differentiable by itself: ``WindowMax`` is."""
+    if _on_cpu("window_max", c):
         return window_max_torch(c, pos, torch.ones(c.shape[:2], dtype=torch.bool),
                                 r2, halo)
-    if c.device.type != "cuda":
-        raise ValueError(f"window_max: unsupported device {c.device}")
-    if c.requires_grad or pos.requires_grad:
-        raise NotImplementedError(
-            "window_max on CUDA is forward-only in this slice; its backward "
-            "kernel comes with the training slice (run under torch.no_grad())")
+    _check("window_max", c, pos)
     B, N, H = c.shape
-    if c.dtype != torch.float32 or pos.dtype != torch.float32:
-        raise TypeError("window_max: c and pos must be float32")
-    if pos.shape != (B, N, 2) or pos.device != c.device:
-        raise ValueError(f"window_max: pos {tuple(pos.shape)} on {pos.device} "
-                         f"does not match c {tuple(c.shape)} on {c.device}")
-    if not (0 < H <= MAX_H):
-        raise ValueError(f"window_max: H={H} outside 1..{MAX_H}")
-    c = c.contiguous()
-    pos = pos.contiguous()
+    c, pos = c.detach().contiguous(), pos.detach().contiguous()
     out = torch.empty_like(c)
-    with torch.cuda.device(c.device):
-        err = _kernel()(c.data_ptr(), pos.data_ptr(), out.data_ptr(), B, N, H,
-                        int(halo), float(r2),
-                        torch.cuda.current_stream(c.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"window_max_fwd launch failed: cudaError {err}")
+    _launch("window_max_fwd", c, c.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            B, N, H, int(halo), float(r2))
     window_max.launches += 1
     return out
 
 
 window_max.launches = 0
+
+
+def window_max_bwd(c: torch.Tensor, pos: torch.Tensor, m: torch.Tensor,
+                   g: torch.Tensor, r2: float, halo: int) -> torch.Tensor:
+    """Gradient of ``window_max`` with respect to c (see
+    ops/window.py:window_max_bwd_torch): every adjacent source whose value
+    equals its query's max gets that query's full gradient."""
+    if _on_cpu("window_max_bwd", c):
+        return window_max_bwd_torch(c, pos, m, g, r2, halo)
+    _check("window_max_bwd", c, pos, m, g)
+    B, N, H = c.shape
+    c, pos, m, g = (t.detach().contiguous() for t in (c, pos, m, g))
+    dc = torch.empty_like(c)
+    _launch("window_max_bwd", c, c.data_ptr(), pos.data_ptr(), m.data_ptr(),
+            g.data_ptr(), dc.data_ptr(), B, N, H, int(halo), float(r2))
+    window_max_bwd.launches += 1
+    return dc
+
+
+window_max_bwd.launches = 0
+
+
+class WindowMax(torch.autograd.Function):
+    """``window_max`` with ``window_max_bwd`` as its backward; ``pos``
+    gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, c, pos, r2: float, halo: int):
+        m = window_max(c, pos, r2, halo)
+        ctx.save_for_backward(c, pos, m)
+        ctx.r2, ctx.halo = r2, halo
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        c, pos, m = ctx.saved_tensors
+        return window_max_bwd(c, pos, m, g, ctx.r2, ctx.halo), None, None, None
 
 
 def window_edgeconv_linear_cuda(
@@ -85,10 +142,11 @@ def window_edgeconv_linear_cuda(
     bias: Optional[torch.Tensor],
 ) -> torch.Tensor:
     """EdgeConv(linear MLP, max) over the implicit radius graph with the
-    aggregation in the kernel; the counterpart of
-    ``window_edgeconv_linear_pallas``.  0 at padded nodes."""
+    aggregation through ``WindowMax`` (the kernels on a CUDA tensor, their
+    plain versions on a CPU tensor); the counterpart of
+    ``window_edgeconv_linear_pallas``.  0 and no gradient at padded nodes."""
     a, c = edgeconv_terms(x, weight, bias)
     pos = torch.where(g.mask[..., None], g.etaphi,
                       torch.full_like(g.etaphi, PAD_POS))
-    m = window_max(c, pos, float(g.r) ** 2, g.halo)
+    m = WindowMax.apply(c, pos, float(g.r) ** 2, g.halo)
     return combine(a, m, g.mask)

@@ -4,10 +4,11 @@ GraphMETNetwork's edge MLP is one ``Linear(2H → H)``; split over the
 concat ``[x_i ‖ x_j − x_i]`` it is ``a_i + c_j``, so the max aggregation
 factors exactly into ``a_i + max_j c_j`` (ops/window.edgeconv_terms).
 
-Ported here: window graphs with 'max'.  A CUDA tensor goes through the
-Hopper kernel, a CPU tensor through the plain PyTorch version; the choice
-follows the tensor's device.  Neighbour-list graphs (ROADMAP A8) and the
-sharded halo-exchange path (A12) are not ported yet.
+Ported here: window graphs with 'max'.  Both devices go through the
+``WindowMax`` autograd function (ops/cuda/edgeconv_window.py): the Hopper
+kernels for a CUDA tensor, their plain PyTorch versions for a CPU tensor,
+with the same tie rule in the gradient.  Neighbour-list graphs (ROADMAP
+A8) and the sharded halo-exchange path (A12) are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,7 +17,10 @@ from typing import Optional
 
 import torch
 
-from deepmetv2_tpu_torch.ops.window import WindowGraph, window_edgeconv_linear
+from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import (
+    window_edgeconv_linear_cuda,
+)
+from deepmetv2_tpu_torch.ops.window import WindowGraph
 
 
 def edgeconv(
@@ -33,10 +37,4 @@ def edgeconv(
             "only WindowGraph (window mode)")
     if reduction != "max":
         raise NotImplementedError(f"reduction {reduction!r}: only 'max'")
-    if x.is_cuda:
-        from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import (
-            window_edgeconv_linear_cuda,
-        )
-
-        return window_edgeconv_linear_cuda(x, graph, weight, bias)
-    return window_edgeconv_linear(x, graph, weight, bias, reduction)
+    return window_edgeconv_linear_cuda(x, graph, weight, bias)

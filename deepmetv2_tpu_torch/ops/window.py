@@ -9,9 +9,10 @@ factorized message a_i + c_w (ops/edgeconv.py) is a masked window max:
 
 with adj(i, w) = (η_i−η_w)² + (φ_i−φ_w)² < r², no φ wrap (reference
 train.py:47).  This module is the CPU path and the oracle of the CUDA
-kernel (ops/cuda/edgeconv_window.py): both round the predicate the same
-way, one IEEE operation at a time, and a max selects an input exactly, so
-the two agree bit for bit.
+kernels (ops/cuda/edgeconv_window.py), forward and backward: both round
+the predicate the same way, one IEEE operation at a time, a max selects
+an input exactly, and the backward sums in the same order, so kernel and
+plain version agree bit for bit.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,22 +54,60 @@ def window_max_torch(
     """``m[b,i,:] = max c[b,w,:]`` over w in [i−halo, i+halo] ∩ [0, N) with
     mask[i], mask[w] and adj(i, w); −inf where there is none.
 
-    Walks the offsets d = 0..halo once: the pair (i, i+d) is tested once
-    and feeds both directions, since the predicate is symmetric."""
+    Walks the offsets d = −halo..halo over c padded by halo rows of −inf
+    on each side: one select and one max of [B, N, H] per offset.  Written
+    without ``out=`` so that autograd can run through it (torch's maximum
+    splits the gradient at a tie; ``window_max_bwd_torch`` is the
+    backward with the kernel's tie rule)."""
+    B, N, H = c.shape
+    w = min(halo, N - 1)
+    neg = torch.tensor(float("-inf"), dtype=c.dtype, device=c.device)
+    cp = F.pad(c, (0, 0, w, w), value=float("-inf"))
+    ep = F.pad(pos[..., 0], (w, w))
+    pp = F.pad(pos[..., 1], (w, w))
+    mp = F.pad(mask, (w, w), value=False)
+    m = torch.full_like(c, float("-inf"))
+    for d in range(-w, w + 1):          # sources i + d
+        s = slice(w + d, w + d + N)
+        adj = (adjacent(pos[..., 0], pos[..., 1], ep[:, s], pp[:, s], r2)
+               & mask & mp[:, s])[..., None]
+        m = torch.maximum(m, torch.where(adj, cp[:, s], neg))
+    return m
+
+
+def window_max_bwd_torch(
+    c: torch.Tensor,       # [B, N, H] the forward's input
+    pos: torch.Tensor,     # [B, N, 2] padded rows at PAD_POS
+    m: torch.Tensor,       # [B, N, H] the forward's output
+    g: torch.Tensor,       # [B, N, H] gradient of m
+    r2: float,
+    halo: int,
+) -> torch.Tensor:
+    """The backward of the window max with the TPU kernel's tie rule:
+
+        dc[b,s,h] = Σ_{q ∈ [s−halo, s+halo] ∩ [0,N)}
+                        [adj(q, s) ∧ c[b,s,h] == m[b,q,h]] · g[b,q,h]
+
+    so EVERY tied source gets the full gradient of its query (torch's
+    maximum would halve it at each tie).  Where m is −inf (no neighbour)
+    it stands as +inf with g = 0, as in the JAX package's
+    ``_window_max_bwd``.  Each source sums its terms in ascending query
+    order, which the CUDA kernel repeats, so the two agree bit for bit."""
     B, N, H = c.shape
     eta, phi = pos[..., 0], pos[..., 1]
-    neg = torch.tensor(float("-inf"), dtype=c.dtype, device=c.device)
-    m = torch.full_like(c, float("-inf"))
-    for d in range(min(halo, N - 1) + 1):
-        lo, hi = slice(0, N - d), slice(d, N)
-        adj = (adjacent(eta[:, hi], phi[:, hi], eta[:, lo], phi[:, lo], r2)
-               & mask[:, hi] & mask[:, lo])[..., None]
-        m_lo = m[:, lo]                       # queries i, sources i + d
-        torch.maximum(m_lo, torch.where(adj, c[:, hi], neg), out=m_lo)
-        if d:
-            m_hi = m[:, hi]                   # queries i + d, sources i
-            torch.maximum(m_hi, torch.where(adj, c[:, lo], neg), out=m_hi)
-    return m
+    finite = torch.isfinite(m)
+    m_safe = torch.where(finite, m, torch.full_like(m, float("inf")))
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    g_safe = torch.where(finite, g, zero)
+    dc = torch.zeros_like(c)
+    w = min(halo, N - 1)
+    for d in range(-w, w + 1):          # query q = s + d, ascending
+        s = slice(max(0, -d), min(N, N - d))
+        q = slice(s.start + d, s.stop + d)
+        hit = (adjacent(eta[:, q], phi[:, q], eta[:, s], phi[:, s], r2)[..., None]
+               & (c[:, s] == m_safe[:, q]))
+        dc[:, s] += torch.where(hit, g_safe[:, q], zero)
+    return dc
 
 
 def edgeconv_terms(x: torch.Tensor, weight: torch.Tensor,

@@ -1,17 +1,65 @@
-"""Evaluation driver (the JAX package's ``train/loop.py:evaluate``;
-reference evaluate.py:31-164).  The training loop comes with the training
-slice."""
+"""Train and evaluate loops (the JAX package's ``train/loop.py``;
+reference train.py:34-145, evaluate.py:31-164), on one device.
+
+The artifact contract is the reference's: ``loss.log`` CSV,
+``metrics_val_{best,last}.json``, ``{best,last}.resolutions`` (lz4 pickle),
+``{best,last}.ckpt``, plus the run's ``config.json``.  Steps run one per
+batch; the JAX package's chained and device-resident feeds replay the same
+trajectory and are not ported (ROADMAP A11).
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import json
+import os
+import os.path as osp
+import time
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from deepmetv2_tpu_torch.config import Config
+from deepmetv2_tpu_torch.data.batching import to_device
 from deepmetv2_tpu_torch.data.loader import PaddedLoader, device_feed
 from deepmetv2_tpu_torch.train import metrics as metrics_mod
+from deepmetv2_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                  save_checkpoint)
+from deepmetv2_tpu_torch.train.schedule import ReduceLROnPlateau
+from deepmetv2_tpu_torch.train.step import (make_bn_refresh_step,
+                                            make_eval_step, make_train_step,
+                                            set_learning_rate)
+from deepmetv2_tpu_torch.utils import artifacts
+from deepmetv2_tpu_torch.utils.logging import RunningAverage, StepTimer
+
+
+def train_one_epoch(model, optimizer, train_step, loader: PaddedLoader,
+                    epoch: int, device, log_every: int = 50,
+                    verbose: bool = True) -> float:
+    """One pass over the training set (reference train.py:34-60); returns
+    the mean train loss.  Losses stay on the device until the epoch ends,
+    except for one sync at each log line."""
+    losses = []
+    avg = RunningAverage()
+    timer = StepTimer()
+    timer.start()
+    for i, host_batch in enumerate(loader, 1):
+        loss = train_step(model, optimizer, to_device(host_batch, device))
+        losses.append(loss)
+        timer.update(num_edges=0,
+                     num_nodes=int(np.sum(host_batch.num_valid)))
+        if verbose and i % log_every == 0:
+            avg.update(float(loss))
+            r = timer.rates()
+            print(f"  epoch {epoch} step {i}/{len(loader)} "
+                  f"loss {avg():.3f} ({r['steps_per_s']:.2f} it/s)")
+    mean_loss = (float(torch.stack(losses).mean()) if losses
+                 else float("inf"))
+    if verbose:   # the float() above waited for the epoch's last step
+        print(f"Training epoch: {epoch:02d}, MSE: {mean_loss:.4f} "
+              f"({timer.elapsed:.2f} s, "
+              f"{1e3 * timer.elapsed / max(timer.steps, 1):.2f} ms/step)")
+    return mean_loss
 
 
 def evaluate(model, eval_step, loader: PaddedLoader, cfg: Config, device,
@@ -48,3 +96,100 @@ def evaluate(model, eval_step, loader: PaddedLoader, cfg: Config, device,
         print("- Eval metrics : " +
               " ; ".join(f"{k}: {v:05.3f}" for k, v in metrics_mean.items()))
     return metrics_mean, hists
+
+
+def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
+        val_loader: PaddedLoader, ckpt_dir: str, device,
+        restore_file: Optional[str] = None, epochs: Optional[int] = None,
+        verbose: bool = True) -> None:
+    """The training loop (reference train.py:62-145) for GraphMET:
+    epochs of train steps, the plateau step on the mean train loss, then
+    validation, checkpoints and artifacts.  ``restore_file`` ('best' or
+    'last') resumes model, optimizer and scheduler from a checkpoint of
+    either package in ``ckpt_dir``, and the best loss from its
+    ``metrics_val_best.json``."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    train_step = make_train_step(cfg)
+    eval_step = make_eval_step(cfg)
+    scheduler = ReduceLROnPlateau(
+        lr=cfg.optim.lr,
+        factor=cfg.optim.plateau_factor,
+        patience=cfg.optim.plateau_patience,
+        threshold=cfg.optim.plateau_threshold,
+    )
+
+    first_epoch = 0
+    best_validation_loss = 1e8  # reference train.py:78
+    if restore_file is not None:
+        payload = restore_checkpoint(
+            osp.join(ckpt_dir, restore_file + ".ckpt"), model, optimizer,
+            scheduler)
+        first_epoch = payload["epoch"]
+        if verbose:
+            print(f"Restarting training from epoch {first_epoch}")
+        best_json = osp.join(ckpt_dir, "metrics_val_best.json")
+        if osp.exists(best_json):
+            with open(best_json) as f:
+                best_validation_loss = json.load(f)["loss"]
+
+    with open(osp.join(ckpt_dir, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+
+    loss_log = open(osp.join(ckpt_dir, "loss.log"),
+                    "a" if restore_file else "w")
+    if not restore_file:
+        loss_log.write("# loss log for training starting at "
+                       + time.strftime("%Y-%m-%d %H:%M:%S", time.gmtime())
+                       + "\n")
+        loss_log.write("epoch, loss, val_loss\n")
+        loss_log.flush()
+
+    n_epochs = epochs if epochs is not None else cfg.train.epochs
+    refresh_step = None
+    t_fit = time.perf_counter()
+    for epoch in range(first_epoch + 1, n_epochs + 1):
+        if verbose:
+            print(f"Current best loss: {best_validation_loss}")
+            print(f"Learning rate: {scheduler.lr}")
+
+        train_loss = train_one_epoch(model, optimizer, train_step,
+                                     train_loader, epoch, device,
+                                     verbose=verbose)
+
+        if cfg.train.bn_refresh_batches > 0:
+            # precise-BN: re-estimate the running statistics under the
+            # CURRENT parameters before validating
+            refresh_step = refresh_step or make_bn_refresh_step(cfg)
+            for i, rb in enumerate(train_loader):
+                if i >= cfg.train.bn_refresh_batches:
+                    break
+                refresh_step(model, to_device(rb, device))
+        set_learning_rate(optimizer, scheduler.step(train_loss))  # train.py:58
+
+        save_checkpoint(model, optimizer, scheduler, epoch, is_best=False,
+                        checkpoint_dir=ckpt_dir)
+
+        test_metrics, resolutions = evaluate(model, eval_step, val_loader,
+                                             cfg, device, verbose=verbose)
+        validation_loss = test_metrics["loss"]
+        loss_log.write(f"{epoch},{train_loss:.2f},{validation_loss:.2f}\n")
+        loss_log.flush()
+
+        if validation_loss <= best_validation_loss:
+            if verbose:
+                print("Found new best loss!")
+            best_validation_loss = validation_loss
+            save_checkpoint(model, optimizer, scheduler, epoch, is_best=True,
+                            checkpoint_dir=ckpt_dir)
+            artifacts.save_dict_to_json(
+                test_metrics, osp.join(ckpt_dir, "metrics_val_best.json"))
+            artifacts.save(resolutions, osp.join(ckpt_dir, "best.resolutions"))
+
+        artifacts.save_dict_to_json(
+            test_metrics, osp.join(ckpt_dir, "metrics_val_last.json"))
+        artifacts.save(resolutions, osp.join(ckpt_dir, "last.resolutions"))
+
+    loss_log.close()
+    if verbose:
+        print(f"Trained epochs {first_epoch + 1}..{n_epochs} in "
+              f"{time.perf_counter() - t_fit:.1f} s")

@@ -1,5 +1,5 @@
-"""The loss (the JAX package's ``train/loss.py``; reference
-model/net.py:49-62).  The reference's ``scatter_add(w·p, batch)`` is a
+"""The losses (the JAX package's ``train/loss.py``; reference
+model/net.py:49-90).  The reference's ``scatter_add(w·p, batch)`` is a
 masked sum over the node axis of the padded batch."""
 
 from __future__ import annotations
@@ -29,3 +29,21 @@ def loss_fn(weights: torch.Tensor, batch: EventBatch) -> torch.Tensor:
     ev = batch.num_valid > 0
     total = torch.where(ev, per_event, torch.zeros_like(per_event)).sum()
     return 0.5 * total / torch.clamp(ev.sum(), min=1)
+
+
+def u_perp_par_loss(weights: torch.Tensor, batch: EventBatch) -> torch.Tensor:
+    """The reference's recoil-decomposition loss (model/net.py:71-90),
+    present there but unused by its training loop; kept for parity,
+    including its use of ``y[:, 0]`` for BOTH components of qT."""
+    qtx = batch.y[:, 0]
+    qty = batch.y[:, 0]  # sic: the reference uses truth[:,0] twice
+    v_qt = torch.stack([qtx, qty], dim=1)
+    metx, mety = weighted_met(weights, batch)
+    vec = torch.stack([-metx, -mety], dim=1)
+    qt2 = (v_qt * v_qt).sum(1)
+    response = (vec * v_qt).sum(1) / qt2
+    v_par = response[:, None] * v_qt
+    u_par = torch.sqrt((v_par * v_par).sum(1)) - torch.sqrt(qt2)
+    v_perp = vec - v_par
+    u_perp = torch.sqrt((v_perp * v_perp).sum(1))
+    return 0.5 * torch.mean(u_par ** 2 + u_perp ** 2)

@@ -1,9 +1,16 @@
-"""Per-batch steps (the JAX package's ``train/step.py``): graph building and
-the evaluation step.  The training step comes with the training slice."""
+"""Per-batch steps (the JAX package's ``train/step.py``): the optimizer,
+graph building, the train step, the BatchNorm refresh step and the
+evaluation step.
+
+Where the JAX package carries a ``TrainState`` pytree through jitted steps,
+the port keeps the model (parameters and BatchNorm buffers) and a
+``torch.optim.AdamW`` and updates them in place; a train step returns the
+loss as a device tensor without a host sync.
+"""
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Iterable, Tuple
 
 import torch
 
@@ -15,9 +22,43 @@ from deepmetv2_tpu_torch.ops.window import WindowGraph
 from deepmetv2_tpu_torch.train.loss import loss_fn
 
 
+def make_optimizer(cfg: Config, model: GraphMET) -> torch.optim.AdamW:
+    """AdamW as the reference configures it (train.py:75: lr 1e-3; torch's
+    defaults betas (0.9, 0.999), eps 1e-8, weight decay 0.01), over every
+    parameter, as optax's ``adamw`` in the JAX package.  The optional
+    global-norm clip is ``clip_by_global_norm`` in the train step."""
+    o = cfg.optim
+    return torch.optim.AdamW(model.parameters(), lr=o.lr,
+                             betas=tuple(o.betas), eps=o.eps,
+                             weight_decay=o.weight_decay)
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Write the plateau-controlled lr into every parameter group."""
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+@torch.no_grad()
+def clip_by_global_norm(params: Iterable[torch.Tensor],
+                        max_norm: float) -> None:
+    """optax's ``clip_by_global_norm``: with ``norm`` the l2 norm of all
+    gradients, each gradient ``t`` becomes ``t / norm * max_norm`` when
+    ``norm >= max_norm`` and stays as it is otherwise.  (torch's
+    ``clip_grad_norm_`` divides by ``norm + 1e-6`` and rounds otherwise.)
+    No host sync: the choice is a ``torch.where`` on the device."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    norm = torch.sqrt(torch.stack([(g * g).sum() for g in grads]).sum())
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+
+
 def window_graph(batch: EventBatch, cfg: Config) -> WindowGraph:
-    """The implicit radius graph of a batch in its current (eta-sorted)
-    order, over (eta, phi = atan2(py, px))."""
+    """The implicit radius graph of a batch in its current order, over
+    (eta, phi = atan2(py, px))."""
     if cfg.graph.mode != "window":
         raise NotImplementedError(
             f"graph mode {cfg.graph.mode!r} is not ported yet; use 'window'")
@@ -36,13 +77,54 @@ def build_graph(batch: EventBatch, cfg: Config
     return batch, window_graph(batch, cfg)
 
 
+def make_train_step(cfg: Config) -> Callable:
+    """``(model, optimizer, batch) -> loss``: sort unless presorted, build
+    the graph, forward in training mode (batch statistics; the BatchNorm
+    buffers update), loss, backward, optional clip, AdamW step.  The loss
+    is the one before the update, a detached device scalar."""
+    clip = cfg.optim.grad_clip_norm
+
+    def train_step(model: GraphMET, optimizer: torch.optim.Optimizer,
+                   batch: EventBatch) -> torch.Tensor:
+        batch, graph = build_graph(batch, cfg)
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(net_apply(model, batch, graph), batch)
+        loss.backward()
+        if clip is not None:
+            clip_by_global_norm(model.parameters(), clip)
+        optimizer.step()
+        return loss.detach()
+
+    return train_step
+
+
+def make_bn_refresh_step(cfg: Config) -> Callable:
+    """One "precise-BN" pass ``(model, batch) -> None``: a forward with
+    batch statistics that updates only the BatchNorm running buffers
+    (used by ``fit`` when ``cfg.train.bn_refresh_batches > 0``)."""
+
+    @torch.no_grad()
+    def refresh(model: GraphMET, batch: EventBatch) -> None:
+        batch, graph = build_graph(batch, cfg)
+        model.train()
+        net_apply(model, batch, graph)
+
+    return refresh
+
+
 def eval_step_body(cfg: Config) -> Callable:
     """``(model, batch) -> (weights, loss)`` with the weights in the
-    CALLER's candidate order: the forward runs on the eta-sorted batch and
-    the weights come back through the inverse permutation."""
+    CALLER's candidate order.  Unless the batch is presorted, the forward
+    runs on the eta-sorted batch and the weights come back through the
+    inverse permutation; a presorted batch runs in its own order."""
 
     def eval_step(model: GraphMET, batch: EventBatch):
-        batch_s, perm = sort_by_eta(batch)   # a no-op order if presorted
+        if cfg.graph.presorted:
+            batch, graph = build_graph(batch, cfg)
+            w = net_apply(model, batch, graph)
+            return w, loss_fn(w, batch)
+        batch_s, perm = sort_by_eta(batch)
         w = net_apply(model, batch_s, window_graph(batch_s, cfg))
         loss = loss_fn(w, batch_s)
         return torch.gather(w, 1, torch.argsort(perm, dim=1)), loss

@@ -11,8 +11,9 @@ from __future__ import annotations
 
 import collections
 import io
+import json
 import pickle
-from typing import Any
+from typing import Any, Dict
 
 from deepmetv2_tpu_torch.nn.core import BatchNormState
 from deepmetv2_tpu_torch.utils import lz4f
@@ -71,3 +72,9 @@ def save(obj: Any, filename: str) -> None:
     utils.py:40-46)."""
     with open(filename, "wb") as fout:
         fout.write(lz4f.compress_frame(pickle.dumps(obj)))
+
+
+def save_dict_to_json(d: Dict[str, Any], json_path: str) -> None:
+    """Save a dict of float-castable values (reference utils.py:48-57)."""
+    with open(json_path, "w") as f:
+        json.dump({k: float(v) for k, v in d.items()}, f, indent=4)

@@ -1,5 +1,6 @@
 """The port's host data layer against the JAX package: byte-equal events,
-batches, split indices, eta permutations and halos."""
+batches (eta- and cell-presorted included), split indices, eta
+permutations, halos and spans."""
 
 import numpy as np
 import pytest
@@ -66,6 +67,44 @@ def test_loader_batches_byte_equal(mode):
         for jbat, tbat in zip(jbs, tbs):
             for f in jb.EventBatch._fields:
                 _same_arrays(getattr(jbat, f), getattr(tbat, f))
+
+
+@pytest.mark.parametrize("mode,presort", [("sequential", "cell"),
+                                          ("bucketed", "cell"),
+                                          ("sequential", "eta")])
+def test_presorted_loader_batches_and_halo_equal(mode, presort):
+    events = t_synth(30, seed=6, n_min=10, n_max=500)
+    kw = dict(events=events, batch_size=4, buckets=(128, 256, 512),
+              mode=mode, presort_eta=True, presort_mode=presort,
+              presort_r=0.4)
+    jls, tls = jl.fetch_dataloader(**kw), tl.fetch_dataloader(**kw)
+    for split in ("train", "test"):
+        assert (jls[split].required_halo(0.4)
+                == tls[split].required_halo(0.4))
+        jbs, tbs = list(jls[split]), list(tls[split])
+        assert len(jbs) == len(tbs)
+        for jbat, tbat in zip(jbs, tbs):
+            for f in jb.EventBatch._fields:
+                _same_arrays(getattr(jbat, f), getattr(tbat, f))
+
+
+@pytest.mark.parametrize("block_rows", [None, 64, 96])
+def test_cell_sort_and_spans_equal(block_rows):
+    events = t_synth(5, seed=7, n_min=30, n_max=700)
+    batch = tb.collate(events, buckets=(1024,), pad_events_to=6)
+    assert js.auto_block_rows(batch, 0.4) == ts.auto_block_rows(batch, 0.4)
+    jc = js.cell_sort_batch(batch, r=0.4, block_rows=block_rows)
+    tc = ts.cell_sort_batch(batch, r=0.4, block_rows=block_rows)
+    for f in jb.EventBatch._fields:
+        _same_arrays(getattr(jc, f), getattr(tc, f))
+    for r in (0.4, 0.8):
+        assert (js.required_span_blocks(jc, r, block_rows)
+                == ts.required_span_blocks(tc, r, block_rows))
+        assert js.required_span_batch(jc, r) == ts.required_span_batch(tc, r)
+        eta, mask = tc.x_cont[..., 3], tc.mask
+        phi = np.arctan2(tc.x_cont[..., 1], tc.x_cont[..., 0])
+        assert (js.required_span_arrays(eta, phi, mask, r)
+                == ts.required_span_arrays(eta, phi, mask, r))
 
 
 def test_sort_by_eta_permutation_equal():

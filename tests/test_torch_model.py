@@ -21,6 +21,7 @@ from deepmetv2_tpu_torch.data.synthetic import synthetic_events
 from deepmetv2_tpu_torch.models.graph_met import GraphMET, net_apply, pdg_remap
 from deepmetv2_tpu_torch.train.checkpoint import load_checkpoint
 from deepmetv2_tpu_torch.train.step import build_graph
+from tests.torch_threads import few_torch_threads  # noqa: F401
 
 CKPT = "ckpts_syn/best.ckpt"
 

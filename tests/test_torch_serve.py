@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 from deepmetv2_tpu.utils import artifacts as j_artifacts
+from tests.torch_threads import few_torch_threads  # noqa: F401
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 N_EVENTS = "100"

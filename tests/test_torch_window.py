@@ -2,8 +2,18 @@
 against JAX ``window_max_xla`` and the Pallas ``window_max`` in interpret
 mode: exact equality on real rows, for eta-sorted, clustered (value ties,
 pairs on the radius boundary), cell-sorted and padded batches.  The whole
-``window_edgeconv_linear`` against JAX's at rtol/atol 1e-5."""
+``window_edgeconv_linear`` against JAX's at rtol/atol 1e-5.
 
+The backward: ``window_max_bwd_torch`` against the VJP of the Pallas
+``window_max`` in interpret mode on the same cases, ties included (every
+tied source gets the full gradient), equal up to the order of the sums
+(rtol 1e-6, atol 1e-6 on gradients of O(1)); and the gradients of x, w and
+b through the port's EdgeConv against those through
+``window_edgeconv_linear_pallas`` at rtol 1e-5 and an atol of 2e-6 of the
+largest entry (the gradients of w and b sum over every node, so their
+rounding scales with their size)."""
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,11 +26,13 @@ from deepmetv2_tpu.ops.pallas import edgeconv_window as jpal
 from deepmetv2_tpu.ops.window import WindowGraph as JWindowGraph
 from deepmetv2_tpu.ops.window import window_edgeconv_linear as j_wecl
 from deepmetv2_tpu.ops.window import window_max_xla
+from deepmetv2_tpu_torch.ops.window import window_max_bwd_torch
 from deepmetv2_tpu_torch.data.synthetic import synthetic_events
 from deepmetv2_tpu_torch.ops.cuda import edgeconv_window as tcu
 from deepmetv2_tpu_torch.ops.edgeconv import edgeconv
 from deepmetv2_tpu_torch.ops.window import WindowGraph, window_edgeconv_linear
 from deepmetv2_tpu_torch.ops.window import window_max_torch
+from tests.torch_threads import few_torch_threads  # noqa: F401
 
 R2 = 0.4 ** 2
 
@@ -124,6 +136,66 @@ def test_window_edgeconv_linear_matches_jax(case):
     np.testing.assert_array_equal(edgeconv(*args).numpy(), got)
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_window_max_bwd_matches_pallas_vjp(case):
+    pos, mask, halo = CASES[case](seed=3)
+    rng = np.random.default_rng(9)
+    c = rng.normal(size=pos.shape[:2] + (8,)).astype(np.float32)
+    if case == "clustered_ties":
+        c = np.round(c, 1)                         # exact value ties
+    g = rng.normal(size=c.shape).astype(np.float32)
+    pos_pad = np.where(mask[..., None], pos, jpal.PAD_POS).astype(np.float32)
+
+    _, vjp = jax.vjp(lambda cc: jpal.window_max(cc, jnp.asarray(pos_pad), R2,
+                                                halo, 128, True),
+                     jnp.asarray(c))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    ct, pt = torch.as_tensor(c), torch.as_tensor(pos_pad)
+    m = tcu.window_max(ct, pt, R2, halo)
+    got = window_max_bwd_torch(ct, pt, m, torch.as_tensor(g), R2, halo)
+    # padded rows: the Pallas window reaches past ±halo, and padded rows
+    # all sit at one coordinate, so only real rows are comparable
+    np.testing.assert_allclose(got.numpy()[mask], want[mask], rtol=1e-6,
+                               atol=1e-6)
+    if case == "clustered_ties":   # ties took the full gradient, not a share
+        tied = (c[..., None, :] == c[..., None, :, :]).sum(-2) > 1
+        assert (tied & mask[..., None]).any()
+    # the autograd function's backward on a CPU tensor is the same function
+    cg = ct.clone().requires_grad_(True)
+    tcu.WindowMax.apply(cg, pt, R2, halo).backward(torch.as_tensor(g))
+    assert torch.equal(cg.grad, got)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_window_edgeconv_linear_grads_match_pallas(case):
+    pos, mask, halo = CASES[case](seed=5)
+    rng = np.random.default_rng(13)
+    H = 8
+    x = rng.normal(size=pos.shape[:2] + (H,)).astype(np.float32)
+    w = rng.normal(size=(2 * H, H)).astype(np.float32)
+    b = rng.normal(size=(H,)).astype(np.float32)
+    G = rng.normal(size=pos.shape[:2] + (H,)).astype(np.float32)
+    jg = JWindowGraph(jnp.asarray(pos), jnp.asarray(mask), r=0.4, halo=halo)
+
+    def jloss(xx, ww, bb):
+        out = jpal.window_edgeconv_linear_pallas(xx, jg, ww, bb, tile=128,
+                                                 interpret=True)
+        return jnp.sum(out * jnp.asarray(G))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w),
+                                              jnp.asarray(b))
+    g = WindowGraph(torch.as_tensor(pos), torch.as_tensor(mask), r=0.4,
+                    halo=halo)
+    for fn in (window_edgeconv_linear, edgeconv):   # plain autograd, kernel path
+        args = [torch.as_tensor(a).requires_grad_(True) for a in (x, w, b)]
+        (fn(args[0], g, args[1], args[2]) * torch.as_tensor(G)).sum().backward()
+        for a, ref in zip(args, want):
+            ref = np.asarray(ref)
+            np.testing.assert_allclose(a.grad.numpy(), ref, rtol=1e-5,
+                                       atol=2e-6 * np.abs(ref).max())
+        assert np.all(args[0].grad.numpy()[~mask] == 0.0)
+
+
 def test_unported_paths_raise():
     x = torch.zeros(1, 4, 8)
     w = torch.zeros(16, 8)
@@ -135,3 +207,7 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="unsupported device"):
         tcu.window_max(torch.zeros(1, 4, 8, device="meta"),
                        torch.zeros(1, 4, 2, device="meta"), R2, 2)
+    meta = torch.zeros(1, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tcu.window_max_bwd(meta, torch.zeros(1, 4, 2, device="meta"), meta,
+                           meta, R2, 2)
