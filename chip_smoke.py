@@ -25,8 +25,25 @@ Phases, each printing one line:
   8. train: the port's train CLI, 2 epochs on synthetic 2000 and a resume
      to 3, with the exact launch counts, the artifacts, and its best.ckpt
      re-evaluated by the evaluate CLI;
-  9. profile: one evaluation step's and one train step's device time by
-     kernel (torch.profiler);
+  9. kernel_knn: the DRN's graph kernels knn_kth and knn_extract against
+     their plain versions, bitwise (t, idx, d2v, rel), on (a) the DRN's
+     own round-1 features of an evaluation batch (B=40, N=2048, H=64,
+     k=16, cap 32), (b) lattice features with many equal distances, (c)
+     padded rows, an empty and a 3-node event at N=1536; with both
+     kernels' times at N=2048 and N=1536, the plain versions' and the
+     bounds;
+ 10. kernel_edge_mlp: edge_mlp_fwd against its plain version for add,
+     mean and max on the graph of (a), within GRAD_RTOL/GRAD_ATOL, and
+     its time at the evaluation shape;
+ 11. evaluate_drn: the evaluate CLI with --model drn on 2000 synthetic
+     events at batch 8 (ckpts_syn_drn/best.ckpt), exact launch counts,
+     the loss against a second pass over the same batches, and every
+     event's MET and graph decisions against the JAX package's fused path
+     (GOLDEN_DRN_MET, GOLDEN_DRN_GRAPHS): only events whose graphs differ
+     may be off;
+ 12. predict_drn: the predict CLI with --model drn over the 2000 events;
+ 13. profile: one evaluation step's and one train step's device time by
+     kernel (torch.profiler), and one DRN evaluation step's;
 then a JSON line of every ported kernel and, last, the device JSON line.
 Any failed check exits non-zero before the last line.  Writes only under
 build/ in the checkout.
@@ -60,6 +77,31 @@ R = 0.4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12             # H100 SXM, FP32 outside the tensor cores
 TRAIN_B, TRAIN_N, TRAIN_HALO = 8, 2048, 192
+# JAX package, the DRN validation loss of ckpts_syn_drn/best.ckpt on
+# synthetic 2000 (seed 42, split 0.2, batch 8) through its fused path (the
+# Pallas graph and conv kernels in interpret mode), on the CPU:
+# tests/test_torch_drn.py:jax_drn_eval(2000, 8), which also gives each
+# event's MET estimate (GOLDEN_DRN_MET) and its per-round graph digests
+# (GOLDEN_DRN_GRAPHS, drn_graph_digests).
+GOLDEN_DRN_LOSS = 41.40185546875
+GOLDEN_DRN_MET = "tests/golden_drn_val_met.npy"
+GOLDEN_DRN_GRAPHS = "tests/golden_drn_val_graphs.npy"
+# ckpts_syn_drn/metrics_val_best.json: the JAX package's own TPU run,
+# printed beside the port's loss as a reference, not a gate
+JAX_TPU_DRN_LOSS = 67.19747924804688
+DRN_CKPTS = "ckpts_syn_drn"
+DRN_B, DRN_N, DRN_K, DRN_CAP = 40, 2048, 16, 32
+DRN_EVENT_RTOL = 1e-4      # an event's MET against the JAX package's
+# Only an event whose graph decisions (some round's neighbour lists or
+# matching) differ from the JAX package's may miss DRN_EVENT_RTOL: a pair
+# within a few ulps of a threshold is decided by the order of the d² sums
+# (ROADMAP C).  Of the 400 validation events, at most this many may differ
+# so: a fault in the graph build or the matching changes nearly every
+# event, near-ties a few percent (the port on the CPU: 37, ROADMAP C,
+# counted by tests/test_torch_drn.py:drn_divergence(2000, 8)).
+DRN_MAX_GRAPH_EVENTS = 80
+DRN_KEPT_RTOL = 1e-5       # the loss over the other events against JAX's
+DRN_CLI_RTOL = 1e-6        # the CLI's loss against the checked pass's
 
 
 def fail(msg: str) -> None:
@@ -530,6 +572,385 @@ def train_phase(work: str):
     return fwd, bwd
 
 
+def drn_model(device):
+    """(DRN with ckpts_syn_drn/best.ckpt, its run config)."""
+    from deepmetv2_tpu_torch.cli.common import load_run_config
+    from deepmetv2_tpu_torch.models.drn import DRN
+    from deepmetv2_tpu_torch.train.checkpoint import load_checkpoint
+
+    ck = os.path.join(HERE, DRN_CKPTS)
+    cfg = load_run_config(ck)
+    payload = load_checkpoint(os.path.join(ck, "best.ckpt"))
+    model = DRN(cfg.drn, device=device)
+    return model.params_from_jax(payload["params"],
+                                 payload["bn_state"]).eval(), cfg
+
+
+def drn_val_loader(cfg, batch_size: int):
+    """The validation loader of synthetic 2000 (seed 42, split 0.2), as the
+    evaluate CLI builds it."""
+    from deepmetv2_tpu_torch.data import fetch_dataloader, synthetic_events
+
+    return fetch_dataloader(events=synthetic_events(2000, seed=42),
+                            batch_size=batch_size, validation_split=0.2,
+                            buckets=cfg.data.node_buckets)["test"]
+
+
+def drn_features(model, batch):
+    """The DRN's round-1 features ``[B, N, H]`` of a batch (inputnet)."""
+    import torch
+
+    x = torch.cat([batch.x_cont, batch.x_cat.to(batch.x_cont.dtype)], dim=-1)
+    with torch.no_grad():
+        return model.inputnet(model.datanorm * x, final_act=True)
+
+
+def drn_graph_digests(rounds):
+    """Per event, one 64-bit digest per DRN round of the round's discrete
+    decisions over its real rows: the neighbour lists (each sorted, masked
+    slots last) and the matching's cluster and partner.  ``rounds`` holds,
+    per round, numpy arrays (mask [B, N], idx [B, N, K], slot mask [B, N,
+    K], cluster [B, N], partner [B, N]); returns ``[B, rounds]`` uint64.
+    The JAX package's digests of the same events are GOLDEN_DRN_GRAPHS."""
+    import hashlib
+
+    import numpy as np
+
+    out = np.zeros((rounds[0][0].shape[0], len(rounds)), np.uint64)
+    for r, (mask, idx, nmask, cluster, partner) in enumerate(rounds):
+        lists = np.sort(np.where(nmask, idx, np.iinfo(np.int32).max), axis=-1)
+        for b in range(mask.shape[0]):
+            m = mask[b].astype(bool)
+            d = hashlib.blake2b(digest_size=8)
+            for a in (lists[b][m], cluster[b][m], partner[b][m]):
+                d.update(np.ascontiguousarray(a, dtype=np.int32).tobytes())
+            out[b, r] = int.from_bytes(d.digest(), "little")
+    return out
+
+
+def drn_eval_pass(model, loader, device):
+    """The DRN's validation pass as the evaluate CLI takes it, with what the
+    CLI does not return: ``(losses, met, graphs)``, the per-batch losses, the
+    cartesian MET estimate of every event ``[n, 2]`` in the loader's order
+    and its per-round graph digests ``[n, rounds]``."""
+    import numpy as np
+    import torch
+    from deepmetv2_tpu_torch.data import to_device
+    from deepmetv2_tpu_torch.models.drn import drn_net_apply
+    from deepmetv2_tpu_torch.train.loss import drn_loss_fn, drn_met_vector
+
+    head = model.cfg.head
+    losses, mets, graphs = [], [], []
+    for host, ids in zip(loader, loader._batches):
+        batch = to_device(host, device)
+        diag = {}
+        with torch.no_grad():
+            pred = drn_net_apply(model.eval(), batch, diag)
+        losses.append(float(drn_loss_fn(pred, batch, head)))
+        mets.append(drn_met_vector(pred, head)[:len(ids)].cpu().numpy())
+        rounds = [[t.cpu().numpy() for t in (m, nbr.idx, nbr.mask, c, p)]
+                  for m, nbr, c, p in diag["rounds"]]
+        graphs.append(drn_graph_digests(rounds)[:len(ids)])
+    return losses, np.concatenate(mets), np.concatenate(graphs)
+
+
+def knn_bound(mask, H: int, cap: int = 0, rel: bool = False):
+    """The knn kernels' bound from this run's mask: the distance products
+    the data needs, one multiply and one add per feature for each pair of
+    real nodes of an event, each pair once (d² is symmetric), plus the
+    squared norms; bytes of h, mask, t and sq (each read or written once),
+    plus idx, d2v and the relation for the extraction."""
+    B, N = mask.shape
+    n = mask.sum(dim=1).double()
+    ops = int(round(float((H * n * (n - 1) + 2 * H * n).sum())))
+    nbytes = 4 * B * N * H + B * N + 8 * B * N
+    if cap:
+        nbytes += 8 * B * N * cap + (B * N * N if rel else 0)
+    return bound(nbytes, ops)
+
+
+def kernel_knn_phase(device, model, batch):
+    import numpy as np
+    import torch
+    from deepmetv2_tpu_torch.ops.cuda.knn_und import knn_extract, knn_kth
+    from deepmetv2_tpu_torch.ops.knn_und import (knn_extract_torch,
+                                                 knn_kth_torch)
+
+    k, cap = DRN_K, DRN_CAP
+
+    def check(name, h, mask):
+        t, sq = knn_kth(h, mask, k)
+        tp, sqp = knn_kth_torch(h, mask, k)
+        out = knn_extract(h, mask, tp, sqp, cap, True)
+        plain = knn_extract_torch(h, mask, tp, sqp, cap, True)
+        torch.cuda.synchronize()
+        for what, a, b in (("thresholds", t, tp), ("squared norms", sq, sqp)):
+            if not bitwise_equal(a, b):
+                fail(f"knn_kth case {name}: {n_differ(a, b)} {what} differ "
+                     "from the plain version")
+        for what, a, b in zip(("idx", "d2v", "rel"), out, plain):
+            if not torch.equal(a, b):
+                fail(f"knn_extract case {name}: {what} differs from the "
+                     f"plain version in {int((a != b).sum())} entries")
+        for a, b in ((t, tp), (out[1], plain[1])):
+            fin = torch.isfinite(b)
+            if fin.any():
+                errs.append(float((a[fin] - b[fin]).abs().max()))
+        return t, out
+
+    errs = []
+    rng = np.random.default_rng(3)
+    # (a) the DRN's round-1 features of the first evaluation batch
+    h_a = drn_features(model, batch)
+    mask_a = batch.mask
+    B, N, H = h_a.shape
+    t_a, (_, d2v_a, rel_a) = check("a", h_a, mask_a)
+    deg = rel_a.sum(-1)
+    cap_rows = int(((deg > cap) & mask_a).sum())
+    # (b) lattice features: many exactly equal distances
+    h_b = torch.as_tensor(rng.integers(-2, 3, size=(4, 1024, 16)),
+                          dtype=torch.float32, device=device)
+    mask_b = torch.ones(4, 1024, dtype=torch.bool, device=device)
+    mask_b[1, 700:] = False
+    _, (_, d2v_b, _) = check("b", h_b, mask_b)
+    fin = torch.isfinite(d2v_b[..., 1:])
+    ties = int(((d2v_b[..., 1:] == d2v_b[..., :-1]) & fin).sum())
+    if ties == 0:
+        fail("knn case b has no equal distances: the tie rule was not "
+             "exercised")
+    # (c) padded rows, an empty event and a 3-node event at N=1536
+    h_c = torch.as_tensor(rng.normal(size=(8, 1536, H)), dtype=torch.float32,
+                          device=device)
+    nv = rng.integers(0, 1536, size=8)
+    nv[0], nv[1] = 0, 3
+    mask_c = torch.as_tensor(np.arange(1536)[None, :] < nv[:, None],
+                             device=device)
+    t_c, _ = check("c", h_c, mask_c)
+    if not bool(torch.isinf(t_c[1]).all()):
+        fail("knn case c: a 3-node event has a finite k-th distance")
+
+    times = {}
+    for n in (N, 1536):
+        h, m = h_a[:, :n].contiguous(), mask_a[:, :n].contiguous()
+        t, sq = knn_kth(h, m, k)
+        kb, eb = knn_bound(m, H), knn_bound(m, H, cap, True)
+        times[n] = dict(
+            kth_ms=cuda_ms(lambda: knn_kth(h, m, k), 20),
+            extract_ms=cuda_ms(lambda: knn_extract(h, m, t, sq, cap, True),
+                               20),
+            kth_plain_ms=cuda_ms(lambda: knn_kth_torch(h, m, k), 2),
+            extract_plain_ms=cuda_ms(
+                lambda: knn_extract_torch(h, m, t, sq, cap, True), 2),
+            real_rows=int(m.sum()), kth_bound=kb, extract_bound=eb)
+    say("kernel_knn", names=["knn_kth", "knn_extract"],
+        cases="a,b,c bitwise equal (t, idx, d2v, rel)", shape=[B, N, H],
+        k=k, cap=cap, real_rows=int(mask_a.sum()),
+        rows_past_cap_a=cap_rows, max_degree_a=int(deg[mask_a].max()),
+        equal_adjacent_slots_b=ties, times=times)
+    tk, te = times[N], times[N]
+    return (h_a, t_a), [
+        {"max_abs_err": max(errs), "ms": tk["kth_ms"],
+         "plain_ms": tk["kth_plain_ms"], "bound_ms": tk["kth_bound"][0],
+         "bound_by": tk["kth_bound"][1]},
+        {"max_abs_err": max(errs), "ms": te["extract_ms"],
+         "plain_ms": te["extract_plain_ms"],
+         "bound_ms": te["extract_bound"][0],
+         "bound_by": te["extract_bound"][1]}]
+
+
+def kernel_edge_mlp_phase(device, model, h, mask):
+    """edge_mlp_fwd against its plain version on the DRN's round-1 graph of
+    the evaluation batch (padded query rows have no valid slot), for each
+    aggregation, and its time at that shape."""
+    import torch
+    from deepmetv2_tpu_torch.ops.cuda.edge_mlp import edge_mlp_fwd
+    from deepmetv2_tpu_torch.ops.cuda.knn_und import knn_und_graph
+    from deepmetv2_tpu_torch.ops.edge_mlp import edge_mlp_fwd_torch
+
+    nbr, _, _ = knn_und_graph(h, mask, k=DRN_K, cap=DRN_CAP)
+    mlp = model.convs[0].mlp.params()
+    H = h.shape[-1]
+    w0, b0 = mlp["lin0"]["w"].detach(), mlp["lin0"]["b"].detach()
+    w_diff = w0[H:]
+    w1, b1 = mlp["lin1"]["w"].detach(), mlp["lin1"]["b"].detach()
+    F1, H2 = w1.shape
+    with torch.no_grad():
+        a = torch.matmul(h, w0[:H] - w_diff) + b0
+    args = (a, h, nbr, w_diff, w1, b1)
+    errs, empty = [], int((~nbr.mask.any(-1)).sum())
+    for aggr in ("add", "mean", "max"):
+        with torch.no_grad():
+            got = edge_mlp_fwd(*args, aggr)
+            want = edge_mlp_fwd_torch(*args, aggr)
+        torch.cuda.synchronize()
+        for what, k_, p_ in zip(("agg0", "agg1", "stats"), got, want):
+            if p_ is None:
+                continue
+            fin = torch.isfinite(p_)
+            if not torch.equal(torch.isfinite(k_), fin) or not torch.equal(
+                    k_[~fin], p_[~fin]):
+                fail(f"edge_mlp_fwd {aggr} {what}: the empty rows' "
+                     "sentinels differ from the plain version")
+            d = (k_[fin] - p_[fin]).abs()
+            tol = (GRAD_RTOL * p_[fin].abs()
+                   + GRAD_ATOL * float(p_[fin].abs().max()))
+            if not bool((d <= tol).all()):
+                fail(f"edge_mlp_fwd {aggr} {what} differs from the plain "
+                     f"version by {float(d.max())}")
+            errs.append(float(d.max()))
+    B, N, K = nbr.mask.shape
+    edges = int(nbr.mask.sum())
+    with torch.no_grad():
+        ms = cuda_ms(lambda: edge_mlp_fwd(*args, "add"), 20)
+        plain_ms = cuda_ms(lambda: edge_mlp_fwd_torch(*args, "add"), 3)
+    nbytes = 4 * (a.numel() + h.numel() + nbr.idx.numel() + w_diff.numel()
+                  + w1.numel() + b1.numel() + B * N * H2 + 2 * H2) \
+        + nbr.mask.numel()
+    ops = 2 * (H * F1 + F1 * H2) * edges
+    bound_ms, bound_by, t_bytes, t_ops = bound(nbytes, ops)
+    say("kernel_edge_mlp", name="edge_mlp_fwd",
+        cases="add,mean,max within rtol 1e-5 + 2e-6 max|plain|",
+        max_abs_err=max(errs), shape=[B, N, K, H, F1, H2],
+        valid_edges=edges, empty_rows=empty, ms=ms, plain_ms=plain_ms,
+        bytes=nbytes, fp32_ops=ops, bound_bytes_ms=t_bytes,
+        bound_ops_ms=t_ops)
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def drn_counters():
+    from deepmetv2_tpu_torch.ops.cuda.edge_mlp import edge_mlp_fwd
+    from deepmetv2_tpu_torch.ops.cuda.knn_und import knn_extract, knn_kth
+
+    return {"knn_kth": knn_kth, "knn_extract": knn_extract,
+            "edge_mlp_fwd": edge_mlp_fwd}
+
+
+def evaluate_drn_phase(device, work: str, model, cfg):
+    """The evaluate CLI with --model drn; returns the launches per kernel.
+    A second pass over the same batches (drn_eval_pass) must give the CLI's
+    loss, and holds every event to the JAX package's fused path: an event
+    may miss DRN_EVENT_RTOL only where its graph decisions differ from the
+    JAX package's (near-ties, ROADMAP C), such events must stay few, and
+    the loss over the events with equal graphs must equal the JAX loss
+    over the same events within DRN_KEPT_RTOL."""
+    import numpy as np
+    import torch
+    from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
+    from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import window_max
+
+    ck = os.path.join(work, "drn")
+    os.makedirs(ck)
+    for f in ("config.json", "best.ckpt"):
+        shutil.copy(os.path.join(HERE, DRN_CKPTS, f), ck)
+    counters = drn_counters()
+    for fn in list(counters.values()) + [window_max]:
+        fn.launches = 0
+    t = time.perf_counter()
+    loss = evaluate_cli.run(["--model", "drn", "--synthetic", "2000",
+                             "--batch_size", "8", "--ckpts", ck])["loss"]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    launches = {k: fn.launches for k, fn in counters.items()}
+
+    ld = drn_val_loader(cfg, 8)
+    losses, met, graphs = drn_eval_pass(model, ld, device)
+    pass_loss = float(np.mean(np.asarray(losses, np.float64)))
+    cli_rel = abs(loss - pass_loss) / pass_loss
+    gold = np.load(os.path.join(HERE, GOLDEN_DRN_MET))
+    gold_graphs = np.load(os.path.join(HERE, GOLDEN_DRN_GRAPHS))
+    gen = np.stack([np.asarray(ld.dataset[int(i)][1][:2])
+                    for i in np.concatenate(ld._batches)])
+    if met.shape != gold.shape or graphs.shape != gold_graphs.shape:
+        fail(f"DRN evaluate: {met.shape} / {graphs.shape} events checked, "
+             f"the JAX package's files hold {gold.shape} / "
+             f"{gold_graphs.shape}")
+    differs = graphs != gold_graphs                        # [events, rounds]
+    diverged = differs.any(axis=1)
+    dev = np.abs(met - gold).max(axis=1)
+    scale = np.maximum(np.abs(gold).max(axis=1), 1.0)
+    off = dev > DRN_EVENT_RTOL * scale
+    per_t = 0.5 * ((met - gen) ** 2).sum(1)
+    per_j = 0.5 * ((gold - gen) ** 2).sum(1)
+    kept_rel = (abs(per_t[~diverged].mean() - per_j[~diverged].mean())
+                / per_j[~diverged].mean())
+    say("evaluate_drn", loss=loss, golden=GOLDEN_DRN_LOSS,
+        rel_err=abs(loss - GOLDEN_DRN_LOSS) / GOLDEN_DRN_LOSS,
+        jax_tpu_run_loss_not_a_gate=JAX_TPU_DRN_LOSS, launches=launches,
+        window_max_launches=window_max.launches, seconds=sec,
+        checked_pass_loss=pass_loss, cli_rel_err=cli_rel,
+        events=int(len(met)), graph_events=int(diverged.sum()),
+        graph_events_by_round=[int(c) for c in differs.sum(axis=0)],
+        events_off=int(off.sum()),
+        off_events=[int(i) for i in np.flatnonzero(off)],
+        off_max_abs_met=float(dev[off].max()) if off.any() else 0.0,
+        kept_events=int((~diverged).sum()),
+        kept_max_rel_met=float((dev / scale)[~diverged].max()),
+        kept_loss_rel_err=float(kept_rel))
+    want = 2 * len(ld)
+    if launches != {k: want for k in counters} or window_max.launches:
+        fail(f"DRN evaluate launched {launches} and window_max "
+             f"{window_max.launches} times; want {want} each and 0")
+    if not cli_rel <= DRN_CLI_RTOL:
+        fail(f"DRN evaluate CLI loss {loss} is {cli_rel} from the checked "
+             f"pass's {pass_loss}, not within {DRN_CLI_RTOL}")
+    if (off & ~diverged).any():
+        fail(f"DRN evaluate: events {np.flatnonzero(off & ~diverged).tolist()}"
+             f" differ from the JAX package's MET by more than "
+             f"{DRN_EVENT_RTOL} although their graphs equal its graphs")
+    if diverged.sum() > DRN_MAX_GRAPH_EVENTS:
+        fail(f"DRN evaluate: {int(diverged.sum())} of {len(met)} events have "
+             f"graph decisions unlike the JAX package's; at most "
+             f"{DRN_MAX_GRAPH_EVENTS} may (near-ties)")
+    if not kept_rel <= DRN_KEPT_RTOL:
+        fail(f"DRN evaluate: the loss over the events with the JAX graphs is "
+             f"{kept_rel} from the JAX package's, not within {DRN_KEPT_RTOL}")
+    return launches
+
+
+def predict_drn_phase(work: str):
+    import numpy as np
+    import torch
+    from deepmetv2_tpu_torch.cli import predict as predict_cli
+
+    counters = drn_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out = os.path.join(work, "pred_drn.npz")
+    t = time.perf_counter()
+    predict_cli.main(["--model", "drn", "--synthetic", "2000", "--ckpts",
+                      os.path.join(work, "drn"), "--out", out])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    launches = {k: fn.launches for k, fn in counters.items()}
+    z = np.load(out)
+    say("predict_drn", events=int(len(z["met"])), launches=launches,
+        seconds=sec, keys=sorted(z.files), met_mean=float(np.mean(z["met"])))
+    if len(z["met"]) != 2000 or not np.array_equal(z["event_index"],
+                                                   np.arange(2000)):
+        fail("DRN predict did not return 2000 events in input order")
+    if not np.all(np.isfinite(z["met"])) or "weights" in z.files:
+        fail("DRN predict returned non-finite MET or per-candidate weights")
+    if launches != {k: 2 * 50 for k in counters}:
+        fail(f"DRN predict launched {launches}; want 100 of each")
+    return launches
+
+
+def drn_profile(device, model, cfg) -> None:
+    """One DRN evaluation step (40 events, N=2048): step time from CUDA
+    events, device time by kernel from torch.profiler."""
+    from deepmetv2_tpu_torch.data import to_device
+    from deepmetv2_tpu_torch.train.step import make_drn_eval_step
+
+    batch = to_device(next(iter(drn_val_loader(cfg, DRN_B))), device)
+    step = make_drn_eval_step(cfg)
+    step_ms = cuda_ms(lambda: step(model, batch), 10)
+    dev_ms, n_k, top = step_profile(lambda: step(model, batch), reps=3)
+    say("profile", step="drn_eval", batch=[batch.batch_size, batch.max_nodes],
+        step_ms=step_ms, device_ms=dev_ms, device_busy_share=dev_ms / step_ms,
+        device_idle_share=1 - dev_ms / step_ms, kernels_per_step=n_k, top=top)
+
+
 def main() -> int:
     import torch
 
@@ -568,8 +989,10 @@ def main() -> int:
     bwd = kernel_bwd_phase(device, cases, edge_args)
 
     # 5. main path: evaluate
+    import numpy as np
     from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
     from deepmetv2_tpu_torch.cli import predict as predict_cli
+    from deepmetv2_tpu_torch.data import to_device
     from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import (window_max,
                                                               window_max_bwd)
     from deepmetv2_tpu_torch.utils import artifacts
@@ -610,7 +1033,6 @@ def main() -> int:
     torch.cuda.synchronize()
     pred_s = time.perf_counter() - t
     pred_launches = window_max.launches
-    import numpy as np
     z = np.load(out)
     w, nv = z["weights"], z["n_valid"]
     real = np.arange(w.shape[1])[None, :] < nv[:, None]
@@ -632,19 +1054,47 @@ def main() -> int:
     # 8. main path: the train CLI
     train_fwd, train_bwd = train_phase(work)
 
-    # 9. where one evaluation step's and one train step's time goes
-    profile_phase(device, ck)
+    # 9-10. the DRN's kernels against their plain versions
+    drn, drn_cfg = drn_model(device)
+    drn_batch = to_device(next(iter(drn_val_loader(drn_cfg, DRN_B))), device)
+    (h_a, _), knn = kernel_knn_phase(device, drn, drn_batch)
+    emlp = kernel_edge_mlp_phase(device, drn, h_a, drn_batch.mask)
+    del h_a, drn_batch
 
+    # 11-12. main path: the DRN's evaluate and predict
+    drn_eval = evaluate_drn_phase(device, work, drn, drn_cfg)
+    drn_pred = predict_drn_phase(work)
+
+    # 13. where one evaluation step's and one train step's time goes
+    profile_phase(device, ck)
+    drn_profile(device, drn, drn_cfg)
+
+    def runs(name):
+        return drn_eval[name] + drn_pred[name]
+
+    src = "deepmetv2_tpu_torch/csrc/"
     print(json.dumps({"kernels": [dict({
         "name": "window_max_fwd", "route": "cuda",
-        "source": "deepmetv2_tpu_torch/csrc/window_max.cu",
+        "source": src + "window_max.cu",
         "replaces": "deepmetv2_tpu/ops/pallas/edgeconv_window.py:82",
         "launches": eval_launches + pred_launches + train_fwd,
         "library_ms": None}, **fwd), dict({
         "name": "window_max_bwd", "route": "cuda",
-        "source": "deepmetv2_tpu_torch/csrc/window_max.cu",
+        "source": src + "window_max.cu",
         "replaces": "deepmetv2_tpu/ops/pallas/edgeconv_window.py:143",
-        "launches": train_bwd, "library_ms": None}, **bwd)]}), flush=True)
+        "launches": train_bwd, "library_ms": None}, **bwd), dict({
+        "name": "knn_kth", "route": "cuda", "source": src + "knn_und.cu",
+        "replaces": "deepmetv2_tpu/ops/pallas/knn_und.py:88",
+        "launches": runs("knn_kth"), "library_ms": None}, **knn[0]), dict({
+        "name": "knn_extract", "route": "cuda", "source": src + "knn_und.cu",
+        "replaces": "deepmetv2_tpu/ops/pallas/knn_und.py:109",
+        "launches": runs("knn_extract"), "library_ms": None}, **knn[1]),
+        dict({
+            "name": "edge_mlp_fwd", "route": "cuda",
+            "source": src + "edge_mlp.cu",
+            "replaces": "deepmetv2_tpu/ops/pallas/edge_mlp.py:93",
+            "launches": runs("edge_mlp_fwd"), "library_ms": None},
+            **emlp)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -66,19 +66,31 @@ def apply_graph_mode(cfg: Config, args, all_events, presorted: bool = False,
 
 
 def load_model_for_eval(args, cfg: Config, ckpt_dir: str, device):
-    """(model, eval_step) from a native ``.ckpt`` of the JAX package."""
-    from deepmetv2_tpu_torch.models.graph_met import GraphMET
+    """(model, eval_step) from a native ``.ckpt`` of either package, for
+    ``--model graphmet`` (GraphMET) or ``--model drn`` (DRN)."""
     from deepmetv2_tpu_torch.train.checkpoint import load_checkpoint
-    from deepmetv2_tpu_torch.train.step import make_eval_step
 
-    if args.model != "graphmet":
-        raise SystemExit(f"--model {args.model}: not ported yet")
     if args.from_torch:
+        if args.model != "graphmet":
+            raise SystemExit(
+                "--from_torch checkpoints are GraphMETNetwork state_dicts "
+                "(reference model/net.py:41-43); use --model graphmet")
         raise SystemExit("--from_torch: not ported yet")
     payload = load_checkpoint(osp.join(ckpt_dir, args.restore_file + ".ckpt"))
-    model = GraphMET(cfg.model, device=device)
+    if args.model == "drn":
+        from deepmetv2_tpu_torch.models.drn import DRN
+        from deepmetv2_tpu_torch.train.step import make_drn_eval_step
+
+        model = DRN(cfg.drn, device=device)
+        step = make_drn_eval_step(cfg)
+    else:
+        from deepmetv2_tpu_torch.models.graph_met import GraphMET
+        from deepmetv2_tpu_torch.train.step import make_eval_step
+
+        model = GraphMET(cfg.model, device=device)
+        step = make_eval_step(cfg)
     model.params_from_jax(payload["params"], payload["bn_state"]).eval()
-    return model, make_eval_step(cfg)
+    return model, step
 
 
 def add_common_flags(p) -> None:

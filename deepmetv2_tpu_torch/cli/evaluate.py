@@ -1,7 +1,7 @@
 """Standalone evaluation CLI (reference evaluate.py:167-219):
 
     python -m deepmetv2_tpu_torch.cli.evaluate --data data_dytt \
-        --ckpts ckpts_dytt --restore_file best [--device cpu]
+        --ckpts ckpts_dytt --restore_file best [--model drn] [--device cpu]
 
 Loads a checkpoint, runs the validation split, writes
 ``<restore_file>.resolutions`` next to it and prints the validation loss.

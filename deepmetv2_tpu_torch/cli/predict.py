@@ -4,9 +4,12 @@
         --restore_file best --data data_znunu --out predictions.npz
 
 Runs the model over ALL events (no split) and writes one npz with
-``event_index, met_x, met_y, met, met_phi, n_valid`` per event (the −Σ wᵢpᵢ
-estimate, reference model/net.py:55-56) and the per-candidate ``weights``
-(padded ``[n_events, n_max]``), row i being event i of the input.
+``event_index, met_x, met_y, met, met_phi, n_valid`` per event, row i being
+event i of the input:
+
+  * graphmet: the −Σ wᵢpᵢ estimate (reference model/net.py:55-56) and the
+    per-candidate ``weights`` (padded ``[n_events, n_max]``);
+  * drn (``--model drn``): the head's cartesian MET estimate, no weights.
 """
 
 from __future__ import annotations
@@ -22,7 +25,6 @@ from deepmetv2_tpu_torch.cli.common import (add_common_flags,
                                             load_run_config, resolve_device)
 from deepmetv2_tpu_torch.data import fetch_dataloader, synthetic_events
 from deepmetv2_tpu_torch.data.loader import device_feed
-from deepmetv2_tpu_torch.train.metrics import _neg_weighted_met
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,9 +56,10 @@ def main(argv=None) -> int:
 
     mets, weights, nvalids = [], [], []
     for batch in device_feed(loader, device):
-        w, _ = eval_step(model, batch)
-        mets.append(_neg_weighted_met(w, batch))
-        weights.append(w.cpu().numpy())           # ragged buckets
+        v_met, _, w = eval_step(model, batch)
+        mets.append(v_met)
+        if w is not None:
+            weights.append(w.cpu().numpy())       # ragged buckets
         nvalids.append(batch.num_valid)
 
     met = torch.cat(mets).cpu().numpy()
@@ -71,12 +74,6 @@ def main(argv=None) -> int:
     idx = np.concatenate(list(loader._batches))
     order = np.argsort(idx)   # row i of every output is input event i
     met = met[real][order]
-    n_max = max(w.shape[1] for w in weights)
-    wpad = np.zeros((len(nv), n_max), np.float32)
-    row = 0
-    for w in weights:
-        wpad[row:row + w.shape[0], : w.shape[1]] = w
-        row += w.shape[0]
     arrays = {
         "event_index": idx[order],
         "met_x": met[:, 0],
@@ -84,11 +81,18 @@ def main(argv=None) -> int:
         "met": np.hypot(met[:, 0], met[:, 1]),
         "met_phi": np.arctan2(met[:, 1], met[:, 0]),
         "n_valid": nv[real][order],
-        "weights": wpad[real][order],
     }
+    if weights:
+        n_max = max(w.shape[1] for w in weights)
+        wpad = np.zeros((len(nv), n_max), np.float32)
+        row = 0
+        for w in weights:
+            wpad[row:row + w.shape[0], : w.shape[1]] = w
+            row += w.shape[0]
+        arrays["weights"] = wpad[real][order]
     np.savez_compressed(args.out, **arrays)
-    print(f"wrote {args.out}: {int(real.sum())} events, per-candidate "
-          "weights included")
+    print(f"wrote {args.out}: {int(real.sum())} events"
+          + (", per-candidate weights included" if weights else ""))
     return 0
 
 

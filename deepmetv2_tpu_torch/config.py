@@ -1,10 +1,10 @@
 """Configuration dataclasses, read and written in the JAX package's JSON form.
 
 Every field of ``deepmetv2_tpu/config.py`` is kept, so a run config written
-by either package (``ckpts_syn/config.json``) reads the same here.  Fields
-that only the JAX package's other paths use (DRN, optimizer, mesh) are
-carried so that such a file round-trips; this package reads the model and
-graph sections.
+by either package (``ckpts_syn/config.json``, ``ckpts_syn_drn/config.json``)
+reads the same here.  Fields that only the JAX package's other paths use
+(the mesh, the chained and resident feeds) are carried so that such a file
+round-trips.
 """
 
 from __future__ import annotations
@@ -44,7 +44,8 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DRNConfig:
-    """DynamicReductionNetwork hyperparameters (not ported yet)."""
+    """DynamicReductionNetwork hyperparameters (models/drn.py; evaluation
+    is ported, training is not yet)."""
 
     input_dim: int = 11
     hidden_dim: int = 64

@@ -44,6 +44,14 @@ class EventBatch(NamedTuple):
         return self.x_cont.shape[1]
 
 
+class Neighborhood(NamedTuple):
+    """Fixed-degree neighbour lists of a padded batch: ``idx [B, N, K]``
+    int32 and ``mask [B, N, K]`` bool, invalid slots at index 0."""
+
+    idx: torch.Tensor
+    mask: torch.Tensor
+
+
 def bucket_for(n: int, buckets: Sequence[int]) -> int:
     """Smallest capacity bucket >= n (the largest if none holds it)."""
     for b in buckets:

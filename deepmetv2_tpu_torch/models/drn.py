@@ -1,0 +1,201 @@
+"""DynamicReductionNetwork — the graph-coarsening model family (the JAX
+package's ``models/drn.py``; reference model/dynamic_reduction_network.py:
+27-103), serving path.
+
+Per reduction round (``pool_rounds``, 2 in ``ckpts_syn_drn``):
+  1. the symmetrized feature-space kNN graph of the current features (the
+     fused build, ops/dyn_graph.py);
+  2. EdgeConv with the edge MLP Linear(2H→3H/2)+ELU+Linear(3H/2→H)+ELU and
+     BatchNorm over the valid edge messages, aggregated by ``aggr`` (the
+     fused conv, ops/cuda/edge_mlp.py);
+  3. normalized-cut handshake matching and cluster-max pooling, then (with
+     ``compact_pool``, between rounds) the representatives gathered into
+     the front 3N/4 slots.
+Then the per-event max pool and the output MLP, under a polar or a
+cartesian head.
+
+Parameters keep the JAX package's names and ``[in, out]`` layout, so
+``params_from_jax`` reads a JAX checkpoint unchanged.  Only evaluation is
+ported: the data-derived initialization, the train-mode BatchNorm update
+and the kernels' backward belong to the DRN training slice (ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import torch
+from torch import nn
+
+from deepmetv2_tpu_torch.config import DRNConfig
+from deepmetv2_tpu_torch.data.batching import EventBatch, Neighborhood
+from deepmetv2_tpu_torch.models.graph_met import _leaf
+from deepmetv2_tpu_torch.nn.core import MLP, MaskedBatchNorm
+from deepmetv2_tpu_torch.ops import edge_mlp
+from deepmetv2_tpu_torch.ops.coarsen import global_max_pool, max_pool
+from deepmetv2_tpu_torch.ops.cuda.edge_mlp import edge_mlp_conv
+from deepmetv2_tpu_torch.ops.dyn_graph import build_dyn_graph, cut_matching
+from deepmetv2_tpu_torch.ops.segment import batched_take
+
+# The DRN's default input scales (reference model/net.py:20-31), in the
+# data pipeline's feature order [px, py, pt, eta, d0, dz, mass,
+# puppiWeight, pdgId, charge, fromPV], as the JAX package orders them.
+DEFAULT_NORM = (
+    1.0 / 2950.0, 1.0 / 2950.0, 1.0 / 2950.0, 1.0 / 5.265625,
+    1.0 / 143.875, 1.0 / 589.0, 1.0 / 1.2050781,
+    1.0, 1.0 / 211.0, 1.0, 1.0 / 7.0,
+)
+
+
+class DRNConv(nn.Module):
+    """One round's edge MLP and its edge BatchNorm."""
+
+    def __init__(self, H: int, generator=None, device=None):
+        super().__init__()
+        self.mlp = MLP((2 * H, 3 * H // 2, H), generator, device)
+        self.bn = MaskedBatchNorm(H, device)
+
+
+class DRN(nn.Module):
+    """The JAX package's ``drn_init`` tree as modules (torch's default
+    initialization from ``generator``; weights normally come from a
+    checkpoint through ``params_from_jax``); ``forward`` is ``drn_apply``."""
+
+    def __init__(self, cfg: DRNConfig = DRNConfig(),
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        H, g, d = cfg.hidden_dim, generator, device
+        self.datanorm = nn.Parameter(torch.tensor(
+            DEFAULT_NORM[:cfg.input_dim], dtype=torch.float32, device=d))
+        self.inputnet = MLP((cfg.input_dim, H // 2, H, H), g, d)
+        self.output = MLP((H, H, H // 2, cfg.output_dim), g, d)
+        self.convs = nn.ModuleList(DRNConv(H, g, d)
+                                   for _ in range(cfg.pool_rounds))
+
+    def jax_layout(self) -> Iterator[Tuple[Tuple[Any, ...], torch.Tensor]]:
+        """(JAX pytree path, tensor) for every parameter and BatchNorm
+        buffer, paths rooted at 'params' or 'bn_state'."""
+        yield ("params", "datanorm"), self.datanorm
+        for name in ("inputnet", "output"):
+            for i, lin in enumerate(getattr(self, name).layers):
+                yield ("params", name, f"lin{i}", "w"), lin.w
+                yield ("params", name, f"lin{i}", "b"), lin.b
+        for r, conv in enumerate(self.convs):
+            for i, lin in enumerate(conv.mlp.layers):
+                yield ("params", "convs", r, "mlp", f"lin{i}", "w"), lin.w
+                yield ("params", "convs", r, "mlp", f"lin{i}", "b"), lin.b
+            yield ("params", "convs", r, "bn", "gamma"), conv.bn.gamma
+            yield ("params", "convs", r, "bn", "beta"), conv.bn.beta
+            yield ("bn_state", "convs", r, 0), conv.bn.running_mean
+            yield ("bn_state", "convs", r, 1), conv.bn.running_var
+            yield ("bn_state", "convs", r, 2), conv.bn.num_batches_tracked
+
+    @torch.no_grad()
+    def params_from_jax(self, params: Dict, bn_state: Dict) -> "DRN":
+        """Copy JAX parameters and BatchNorm state (numpy leaves, ``convs``
+        a list, each state a ``BatchNormState``) into this module."""
+        trees = {"params": params, "bn_state": bn_state}
+        for path, t in self.jax_layout():
+            v = _leaf(trees, path)
+            if tuple(v.shape) != tuple(t.shape):
+                raise ValueError(f"{path}: shape {v.shape} != {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(v).to(t.dtype))
+        return self
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                diag: Optional[dict] = None) -> torch.Tensor:
+        return drn_apply(self, x, mask, diag)
+
+
+def _drn_edgeconv(conv: DRNConv, x: torch.Tensor, nbr: Neighborhood,
+                  aggr: str) -> torch.Tensor:
+    """The round's EdgeConv in its fused form (evaluation: the running
+    BatchNorm statistics); shapes the fused conv does not take raise."""
+    layers = conv.mlp.layers
+    H, K = x.shape[-1], nbr.idx.shape[-1]
+    F1, H2 = layers[0].w.shape[-1], layers[-1].w.shape[-1]
+    if len(layers) != 2 or not edge_mlp.supported(K, H, F1, H2):
+        raise NotImplementedError(
+            f"DRN EdgeConv with {len(layers)} layers at K={K}, H={H}, "
+            f"F1={F1}, H2={H2}: not ported yet (XLA form)")
+    bn = conv.bn
+    out, _, _ = edge_mlp_conv(x, nbr, conv.mlp.params(), bn.gamma, bn.beta,
+                              bn.running_mean, bn.running_var, False, aggr)
+    return out
+
+
+def _compact_size(n: int) -> int:
+    """Post-pool capacity: 3N/4 rounded up to a multiple of 128, at least
+    128."""
+    return max(128, -(-(3 * n) // (4 * 128)) * 128)
+
+
+def _compact_nodes(h: torch.Tensor, mask: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pooled representatives gathered into the front
+    ``_compact_size(N)`` slots in ascending index order (a stable sort, as
+    ``jnp.argsort``); overflow drops the highest-index ones."""
+    B, N = mask.shape
+    ncomp = _compact_size(N)
+    if ncomp >= N:
+        return h, mask
+    iota = torch.arange(N, device=mask.device)
+    key = torch.where(mask, iota[None, :], torch.full_like(iota, N)[None, :])
+    order = torch.argsort(key, dim=1, stable=True)[:, :ncomp]
+    return batched_take(h, order), torch.gather(mask, 1, order)
+
+
+def compact_dropped(mask: torch.Tensor) -> torch.Tensor:
+    """Representatives ``_compact_nodes`` would drop from this pooled mask:
+    the worst event's survivors minus the capacity, at least 0."""
+    N = mask.shape[1]
+    ncomp = _compact_size(N)
+    if ncomp >= N:
+        return torch.zeros((), dtype=torch.int64, device=mask.device)
+    return torch.clamp(mask.sum(dim=1).max() - ncomp, min=0)
+
+
+def drn_apply(model: DRN, x: torch.Tensor, mask: torch.Tensor,
+              diag: Optional[dict] = None) -> torch.Tensor:
+    """Forward → per-event outputs ``[B, output_dim]`` (reference
+    model/dynamic_reduction_network.py:82-103).  ``diag``, if given,
+    collects ``compact_dropped`` per compaction and, under ``rounds``, each
+    round's graph decisions ``(mask, nbr, cluster, partner)``."""
+    if model.training:
+        raise NotImplementedError("DRN training: not ported yet; call "
+                                  "model.eval()")
+    cfg = model.cfg
+    h = model.inputnet(model.datanorm * x, final_act=True)
+    for r, conv in enumerate(model.convs):
+        g = build_dyn_graph(h, mask, k=cfg.k, cap=cfg.und_cap,
+                            want_mirror=cfg.mirror_gather)
+        h = _drn_edgeconv(conv, h, g.nbr, cfg.aggr)
+        cluster, partner = cut_matching(g, h, mask)
+        if diag is not None:
+            diag.setdefault("rounds", []).append((mask, g.nbr, cluster,
+                                                  partner))
+        h, mask = max_pool(h, cluster, partner, mask)
+        if cfg.compact_pool and r < cfg.pool_rounds - 1:
+            if diag is not None:
+                diag.setdefault("compact_dropped", []).append(
+                    compact_dropped(mask))
+            h, mask = _compact_nodes(h, mask)
+    return model.output(global_max_pool(h, mask))
+
+
+def drn_net_apply(model: DRN, batch: EventBatch,
+                  diag: Optional[dict] = None) -> torch.Tensor:
+    """The head on ``drn_apply``: 'cartesian' gives (METx, METy) scaled by
+    ``output_scale``; 'polar' gives (MET, φ) with MET = scale·softplus and
+    φ = π·(2·sigmoid − 1)."""
+    cfg = model.cfg
+    x = torch.cat([batch.x_cont, batch.x_cat.to(batch.x_cont.dtype)], dim=-1)
+    out = drn_apply(model, x, batch.mask, diag)
+    if cfg.head == "cartesian":
+        return cfg.output_scale * out[:, 0:2]
+    met = cfg.output_scale * torch.logaddexp(out[:, 0:1],
+                                             torch.zeros_like(out[:, 0:1]))
+    phi = math.pi * (2.0 * torch.sigmoid(out[:, 1:2]) - 1.0)
+    return torch.cat([met, phi], dim=1)

@@ -124,7 +124,8 @@ class Embedding(nn.Module):
 
 
 class MLP(nn.Module):
-    """Linear layers with ELU between them (none after the last)."""
+    """Linear layers with ELU between them (after the last too with
+    ``final_act``)."""
 
     def __init__(self, dims: Sequence[int],
                  generator: Optional[torch.Generator] = None,
@@ -134,8 +135,15 @@ class MLP(nn.Module):
             Linear(dims[i], dims[i + 1], generator, device, dtype)
             for i in range(len(dims) - 1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return mlp_apply([{"w": l.w, "b": l.b} for l in self.layers], x)
+    def params(self) -> Dict[str, Params]:
+        """``{'lin0': {'w', 'b'}, ...}``, the JAX package's MLP tree."""
+        return {f"lin{i}": {"w": l.w, "b": l.b}
+                for i, l in enumerate(self.layers)}
+
+    def forward(self, x: torch.Tensor, final_act: bool = False
+                ) -> torch.Tensor:
+        return mlp_apply(list(self.params().values()), x,
+                         final_act=final_act)
 
 
 class MaskedBatchNorm(nn.Module):

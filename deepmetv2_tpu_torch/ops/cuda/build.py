@@ -16,15 +16,16 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("window_max",)
+KERNELS = ("window_max", "knn_und", "edge_mlp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[str, Callable] = {}
 
 
 def nvcc() -> str:
@@ -78,3 +79,36 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _libs[name] = ctypes.CDLL(str(library_path(name)))
     return _libs[name]
+
+
+def function(lib: str, name: str, argtypes: Sequence) -> Callable:
+    """The C function ``name`` of kernel library ``lib`` (built first if
+    needed), returning an int (a CUDA error code for a launch)."""
+    key = f"{lib}.{name}"
+    if key not in _fns:
+        fn = getattr(load(lib), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _fns[key] = fn
+    return _fns[key]
+
+
+def launch(fn: Callable, device, *args) -> None:
+    """Call ``fn(*args, stream)`` on ``device``'s current stream and raise
+    if the launch failed."""
+    import torch
+
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
+
+
+def on_cpu(name: str, t) -> bool:
+    """True for a CPU tensor (the plain version runs), False for a CUDA
+    tensor (the kernel runs); raises for any other device."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return False

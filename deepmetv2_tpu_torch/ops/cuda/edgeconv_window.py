@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from deepmetv2_tpu_torch.ops.cuda import build
 from deepmetv2_tpu_torch.ops.window import (WindowGraph, combine,
                                             edgeconv_terms,
                                             window_max_bwd_torch,
@@ -31,18 +32,11 @@ _ARGTYPES = {
     "window_max_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "window_max_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
-_fns = {}
 
 
-def _kernel(name: str):
-    if name not in _fns:
-        from deepmetv2_tpu_torch.ops.cuda import build
-
-        fn = getattr(build.load("window_max"), name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return _fns[name]
+def _launch(name: str, c: torch.Tensor, *args) -> None:
+    build.launch(build.function("window_max", name, _ARGTYPES[name]),
+                 c.device, *args)
 
 
 def _check(name: str, c: torch.Tensor, *others: torch.Tensor) -> None:
@@ -60,21 +54,6 @@ def _check(name: str, c: torch.Tensor, *others: torch.Tensor) -> None:
                              f"not match c {tuple(c.shape)} on {c.device}")
 
 
-def _on_cpu(name: str, c: torch.Tensor) -> bool:
-    if c.device.type == "cpu":
-        return True
-    if c.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {c.device}")
-    return False
-
-
-def _launch(name: str, c: torch.Tensor, *args) -> None:
-    with torch.cuda.device(c.device):
-        err = _kernel(name)(*args, torch.cuda.current_stream(c.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-
-
 def window_max(c: torch.Tensor, pos: torch.Tensor, r2: float,
                halo: int) -> torch.Tensor:
     """``m[b,i,:] = max c[b,w,:]`` over w in [i−halo, i+halo] ∩ [0, N) with
@@ -82,7 +61,7 @@ def window_max(c: torch.Tensor, pos: torch.Tensor, r2: float,
     ``[B, N, 2]`` with padded rows at ``PAD_POS`` (padded rows are adjacent
     to each other, at distance 0; the caller masks them).  Not
     differentiable by itself: ``WindowMax`` is."""
-    if _on_cpu("window_max", c):
+    if build.on_cpu("window_max", c):
         return window_max_torch(c, pos, torch.ones(c.shape[:2], dtype=torch.bool),
                                 r2, halo)
     _check("window_max", c, pos)
@@ -103,7 +82,7 @@ def window_max_bwd(c: torch.Tensor, pos: torch.Tensor, m: torch.Tensor,
     """Gradient of ``window_max`` with respect to c (see
     ops/window.py:window_max_bwd_torch): every adjacent source whose value
     equals its query's max gets that query's full gradient."""
-    if _on_cpu("window_max_bwd", c):
+    if build.on_cpu("window_max_bwd", c):
         return window_max_bwd_torch(c, pos, m, g, r2, halo)
     _check("window_max_bwd", c, pos, m, g)
     B, N, H = c.shape

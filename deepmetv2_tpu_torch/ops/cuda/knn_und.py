@@ -1,0 +1,117 @@
+"""The fused undirected kNN graph build with its two passes as Hopper
+kernels (``csrc/knn_und.cu``), the counterpart of the JAX package's
+``ops/pallas/knn_und.py:knn_und_graph``.
+
+``knn_kth`` and ``knn_extract`` launch their kernels for a CUDA tensor and
+take the plain versions (ops/knn_und.py) for a CPU tensor; a CUDA tensor
+never reaches a plain version, and a failed build or launch raises.  The
+graph carries no gradient: the inputs are detached.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from deepmetv2_tpu_torch.ops.cuda import build
+from deepmetv2_tpu_torch.ops.knn_und import (knn_extract_torch,
+                                             knn_kth_torch, neighborhood,
+                                             supported)
+
+# widest h the kernels take: at most 8 query rows and a 32-row chunk of
+# sources, both H wide, fit in shared memory beside the 160 KB of d² rows
+MAX_H = 256
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "knn_kth": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "knn_extract": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+
+def _prepare(name: str, h: torch.Tensor, mask: torch.Tensor, *others):
+    """Contiguous f32 ``h [B, N, H]`` with 0 < H <= MAX_H and a bool mask
+    ``[B, N]``, plus further ``[B, N]`` f32 tensors, all on h's device."""
+    B, N, H = h.shape
+    if not 0 < H <= MAX_H:
+        raise ValueError(f"{name}: H={H} outside 1..{MAX_H}")
+    if h.dtype != torch.float32 or mask.dtype != torch.bool:
+        raise TypeError(f"{name}: h must be float32 and mask bool")
+    for t in (mask,) + others:
+        if tuple(t.shape) != (B, N) or t.device != h.device:
+            raise ValueError(f"{name}: {tuple(t.shape)} on {t.device} does "
+                             f"not match h {tuple(h.shape)} on {h.device}")
+    return [t.detach().contiguous() for t in (h, mask) + others]
+
+
+def knn_kth(h: torch.Tensor, mask: torch.Tensor, k: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(t, sq)``: each node's k-th smallest masked squared distance ``t
+    [B, N]`` and the squared norms ``sq [B, N]`` that ``knn_extract`` takes
+    (see ops/knn_und.py)."""
+    if build.on_cpu("knn_kth", h):
+        return knn_kth_torch(h, mask, k)
+    h, mask = _prepare("knn_kth", h, mask)
+    B, N, H = h.shape
+    if not 1 <= k <= N:
+        raise ValueError(f"knn_kth: k={k} outside 1..N={N}")
+    sq = torch.empty((B, N), dtype=torch.float32, device=h.device)
+    t = torch.empty_like(sq)
+    build.launch(build.function("knn_und", "knn_kth", _ARGTYPES["knn_kth"]),
+                 h.device, h.data_ptr(), mask.data_ptr(), sq.data_ptr(),
+                 t.data_ptr(), B, N, H, int(k))
+    knn_kth.launches += 1
+    return t, sq
+
+
+knn_kth.launches = 0
+
+
+def knn_extract(h: torch.Tensor, mask: torch.Tensor, t: torch.Tensor,
+                sq: torch.Tensor, cap: int, want_rel: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor,
+                           Optional[torch.Tensor]]:
+    """``(idx, d2v, rel)``: the threshold relation's first ``cap`` members
+    per row in ascending (d², index) order, and the relation itself as a
+    bool ``[B, N, N]`` when ``want_rel`` (else None), from ``knn_kth``'s
+    ``(t, sq)``; see ops/knn_und.py:knn_extract_torch."""
+    if build.on_cpu("knn_extract", h):
+        return knn_extract_torch(h, mask, t, sq, cap, want_rel)
+    h, mask, t, sq = _prepare("knn_extract", h, mask, t, sq)
+    B, N, H = h.shape
+    if not 1 <= cap:
+        raise ValueError(f"knn_extract: cap={cap} must be positive")
+    dev = h.device
+    idx = torch.empty((B, N, cap), dtype=torch.int32, device=dev)
+    d2v = torch.empty((B, N, cap), dtype=torch.float32, device=dev)
+    rel = (torch.empty((B, N, N), dtype=torch.bool, device=dev)
+           if want_rel else None)
+    build.launch(build.function("knn_und", "knn_extract",
+                                _ARGTYPES["knn_extract"]),
+                 dev, h.data_ptr(), mask.data_ptr(), t.data_ptr(),
+                 sq.data_ptr(), idx.data_ptr(), d2v.data_ptr(),
+                 rel.data_ptr() if want_rel else None, B, N, H, int(cap))
+    knn_extract.launches += 1
+    return idx, d2v, rel
+
+
+knn_extract.launches = 0
+
+
+def knn_und_graph(h: torch.Tensor, mask: torch.Tensor, k: int = 16,
+                  cap: int = 32, want_rel: bool = False):
+    """Fused equivalent of ``to_undirected(knn_graph(h, mask, k))`` (the
+    JAX ``knn_und_graph`` with ``sort_ids=False``): ``(nbr, d2v, t)``, and
+    ``rel`` last with ``want_rel``.  Slots are in ascending-d² order; a row
+    past the cap keeps its nearest ``cap`` neighbours."""
+    B, N, _ = h.shape
+    if not supported(N, cap):
+        raise ValueError(f"knn_und_graph: unsupported shape N={N} cap={cap}")
+    t, sq = knn_kth(h, mask, k)
+    idx, d2v, rel = knn_extract(h, mask, t, sq, cap, want_rel)
+    nbr, d2v = neighborhood(idx, d2v, mask)
+    if want_rel:
+        return nbr, d2v, t, rel
+    return nbr, d2v, t

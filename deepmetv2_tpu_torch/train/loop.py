@@ -64,16 +64,16 @@ def train_one_epoch(model, optimizer, train_step, loader: PaddedLoader,
 
 def evaluate(model, eval_step, loader: PaddedLoader, cfg: Config, device,
              verbose: bool = True) -> Tuple[Dict[str, float], Dict]:
-    """Full validation pass + qT-binned resolution summary.  Losses and
+    """Full validation pass + qT-binned resolution summary, for either
+    family's eval step (``(v_met, loss, weights or None)``).  Losses and
     per-event metrics stay on the device until the end of the pass."""
     losses = []
     arrs, qts, evs = [], [], []
     has_deepmet = False
     for batch in device_feed(loader, device):
-        w, loss = eval_step(model, batch)
+        v_met, loss, _ = eval_step(model, batch)
         losses.append(loss)
         has_deepmet = bool(batch.y.shape[1] > 6)
-        v_met = metrics_mod._neg_weighted_met(w, batch)
         arr, qt = metrics_mod._decompose_all(v_met, batch.y, has_deepmet)
         arrs.append(arr)
         qts.append(qt)

@@ -31,6 +31,26 @@ def loss_fn(weights: torch.Tensor, batch: EventBatch) -> torch.Tensor:
     return 0.5 * total / torch.clamp(ev.sum(), min=1)
 
 
+def drn_met_vector(pred: torch.Tensor, head: str = "polar") -> torch.Tensor:
+    """DRN head output → cartesian MET ``[B, 2]``: 'cartesian' passes
+    (METx, METy) through, 'polar' converts (MET, φ)."""
+    if head == "cartesian":
+        return pred[:, 0:2]
+    met, phi = pred[:, 0], pred[:, 1]
+    return torch.stack([met * torch.cos(phi), met * torch.sin(phi)], dim=1)
+
+
+def drn_loss_fn(pred: torch.Tensor, batch: EventBatch,
+                head: str = "polar") -> torch.Tensor:
+    """0.5 · mean over real events of ‖v_pred − genMET‖² for the DRN head
+    (events with ``num_valid == 0`` are left out)."""
+    v = drn_met_vector(pred, head)
+    per_event = (v[:, 0] - batch.y[:, 0]) ** 2 + (v[:, 1] - batch.y[:, 1]) ** 2
+    ev = batch.num_valid > 0
+    total = torch.where(ev, per_event, torch.zeros_like(per_event)).sum()
+    return 0.5 * total / torch.clamp(ev.sum(), min=1)
+
+
 def u_perp_par_loss(weights: torch.Tensor, batch: EventBatch) -> torch.Tensor:
     """The reference's recoil-decomposition loss (model/net.py:71-90),
     present there but unused by its training loop; kept for parity,

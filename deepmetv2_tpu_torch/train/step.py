@@ -1,6 +1,6 @@
 """Per-batch steps (the JAX package's ``train/step.py``): the optimizer,
 graph building, the train step, the BatchNorm refresh step and the
-evaluation step.
+evaluation steps of GraphMET and of the DRN.
 
 Where the JAX package carries a ``TrainState`` pytree through jitted steps,
 the port keeps the model (parameters and BatchNorm buffers) and a
@@ -19,7 +19,9 @@ from deepmetv2_tpu_torch.data.batching import EventBatch
 from deepmetv2_tpu_torch.data.sorting import sort_by_eta
 from deepmetv2_tpu_torch.models.graph_met import GraphMET, net_apply
 from deepmetv2_tpu_torch.ops.window import WindowGraph
-from deepmetv2_tpu_torch.train.loss import loss_fn
+from deepmetv2_tpu_torch.train.loss import (drn_loss_fn, drn_met_vector,
+                                            loss_fn)
+from deepmetv2_tpu_torch.train.metrics import _neg_weighted_met
 
 
 def make_optimizer(cfg: Config, model: GraphMET) -> torch.optim.AdamW:
@@ -114,20 +116,22 @@ def make_bn_refresh_step(cfg: Config) -> Callable:
 
 
 def eval_step_body(cfg: Config) -> Callable:
-    """``(model, batch) -> (weights, loss)`` with the weights in the
-    CALLER's candidate order.  Unless the batch is presorted, the forward
-    runs on the eta-sorted batch and the weights come back through the
-    inverse permutation; a presorted batch runs in its own order."""
+    """``(model, batch) -> (v_met [B, 2], loss, weights)`` with the
+    weights in the CALLER's candidate order and ``v_met = −Σ wᵢpᵢ``.
+    Unless the batch is presorted, the forward runs on the eta-sorted batch
+    and the weights come back through the inverse permutation; a presorted
+    batch runs in its own order."""
 
     def eval_step(model: GraphMET, batch: EventBatch):
         if cfg.graph.presorted:
             batch, graph = build_graph(batch, cfg)
             w = net_apply(model, batch, graph)
-            return w, loss_fn(w, batch)
+            return _neg_weighted_met(w, batch), loss_fn(w, batch), w
         batch_s, perm = sort_by_eta(batch)
         w = net_apply(model, batch_s, window_graph(batch_s, cfg))
         loss = loss_fn(w, batch_s)
-        return torch.gather(w, 1, torch.argsort(perm, dim=1)), loss
+        w = torch.gather(w, 1, torch.argsort(perm, dim=1))
+        return _neg_weighted_met(w, batch), loss, w
 
     return eval_step
 
@@ -141,5 +145,22 @@ def make_eval_step(cfg: Config) -> Callable:
     def eval_step(model: GraphMET, batch: EventBatch):
         model.eval()
         return body(model, batch)
+
+    return eval_step
+
+
+def make_drn_eval_step(cfg: Config) -> Callable:
+    """The DRN's evaluation step ``(model, batch) -> (v_met [B, 2], loss,
+    None)`` under ``torch.no_grad()`` with the model in eval mode: the
+    cartesian MET estimate, ``drn_loss_fn`` and no per-candidate weights,
+    in the slots of GraphMET's step."""
+    from deepmetv2_tpu_torch.models.drn import drn_net_apply
+
+    @torch.no_grad()
+    def eval_step(model, batch: EventBatch):
+        model.eval()
+        pred = drn_net_apply(model, batch)
+        return (drn_met_vector(pred, cfg.drn.head),
+                drn_loss_fn(pred, batch, cfg.drn.head), None)
 
     return eval_step
