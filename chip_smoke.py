@@ -44,6 +44,26 @@ Phases, each printing one line:
  12. predict_drn: the predict CLI with --model drn over the 2000 events;
  13. profile: one evaluation step's and one train step's device time by
      kernel (torch.profiler), and one DRN evaluation step's;
+ 14. kernel_edge_mlp_bwd: the DRN's edge-MLP backward against its plain
+     version evaluated in f64, for add, mean and max on (a) the DRN's
+     round-1 features of a train batch (B=16, N=2048) with the cotangents
+     of a real train-mode loss, (b) rows of repeated prototypes (exact max
+     ties, split evenly), (c) empty rows and padded events at N=1536, (d) a
+     list cut to its two-way edges by want_mirror; two launches bitwise
+     equal; the conv's gradients in train mode against
+     the plain path in f64; its time at (a);
+ 15. drn_train_resume: 10 DRN train steps from ckpts_syn_drn/best.ckpt
+     (weights, BatchNorm, the optax chain's AdamW state, scheduler), each
+     loss held to GOLDEN_DRN_TRAIN_LOSSES by the rule stated there, and the
+     first step's loss, gradients, parameters and BatchNorm buffers held
+     to the port's plain train step in f64 on the same graphs;
+ 16. drn_train: the train CLI with --model drn, 2 epochs and a resume to
+     3, exact launch counts of all four DRN kernels, the artifacts, and
+     best.ckpt re-evaluated by the evaluate CLI;
+ 17. probe: the pipelined window forward (the TPU revolver probe's port)
+     bitwise against window_max_fwd and the plain version at both probe
+     shapes, with times;
+ 18. profile: one DRN train step's device time by kernel;
 then a JSON line of every ported kernel and, last, the device JSON line.
 Any failed check exits non-zero before the last line.  Writes only under
 build/ in the checkout.
@@ -102,6 +122,49 @@ DRN_EVENT_RTOL = 1e-4      # an event's MET against the JAX package's
 DRN_MAX_GRAPH_EVENTS = 80
 DRN_KEPT_RTOL = 1e-5       # the loss over the other events against JAX's
 DRN_CLI_RTOL = 1e-6        # the CLI's loss against the checked pass's
+DRN_TRAIN_B, DRN_REFRESH = 16, 30   # ckpts_syn_drn's batch, bn_refresh_batches
+# JAX package, its DRN train step (fused path, Pallas in interpret mode)
+# from ckpts_syn_drn/best.ckpt with the optax chain (clip 10, AdamW) on the
+# first 10 train batches of synthetic 2000 (seed 42, batch 16), on the CPU:
+# tests/test_torch_drn_train.py:jax_drn_resume_losses(10), which also gives
+# each step's per-event graph digests (GOLDEN_DRN_TRAIN_GRAPHS).
+GOLDEN_DRN_TRAIN_LOSSES = (
+    79.53620910644531, 50.799407958984375, 53.26505661010742,
+    31.71601104736328, 49.4322509765625, 80.79585266113281,
+    44.68871307373047, 37.24016571044922, 32.294837951660156,
+    22.015527725219727)
+GOLDEN_DRN_TRAIN_GRAPHS = "tests/golden_drn_train_graphs.npy"
+# The rule, fixed before any run on the card: a step whose graphs, and every
+# earlier step's, equal the JAX digests is held to LOSS_RTOL; a later step
+# trains on other graphs (near-ties, ROADMAP C; train-mode BatchNorm couples
+# the batch's events) and is held to DRN_TRAIN_LATE_RTOL, set from the
+# port's own CPU run against the same golden
+# (tests/test_torch_drn_train.py:port_drn_resume_losses(10)).
+# The port's CPU run took other graphs than the JAX package's from step 0
+# (5 of 16 events), and its losses were then up to 0.131 from the golden
+# (step 7): twice that, rounded up.
+DRN_TRAIN_LATE_RTOL = 0.3
+# Step 0 is also held to the port's own plain train step in f64 on the CPU,
+# from the same weights and optimizer state and on the graphs the card
+# built (injected in place of the graph build and the matching, so near-ties
+# cannot move them): the loss within DRN_STEP_LOSS_RTOL, each gradient after
+# the clip within DRN_STEP_GRAD_ATOL of its tensor's max |gradient|, each
+# parameter after the AdamW update within DRN_STEP_PARAM_ATOL, and each
+# BatchNorm buffer within DRN_STEP_BN_ATOL of its max.  Set before any run on
+# the card, from the port's f32 plain step against the same f64 step on the
+# CPU (first train batch at batch 4, drn_step_against_f64 on the CPU): loss
+# 1.7e-5, gradients up to 1.7e-4 of their max (conv 0's lin1, whose
+# BatchNorm statistics cancel; most tensors below 5e-5), parameters 2.7e-7,
+# buffers 6.8e-7 of their max.  About ten times those readings (the
+# parameters' seven times: AdamW moves them by about lr = 1e-3).  The f64 step
+# runs the port's own code, which tests/test_torch_drn_train.py holds to the
+# JAX package's train step on the CPU (loss, gradients, clip, AdamW with its
+# weight decay, the BatchNorm update); this check holds the card's run of
+# that code, kernels included, to it at the full batch.
+DRN_STEP_LOSS_RTOL = 2e-4
+DRN_STEP_GRAD_ATOL = 2e-3
+DRN_STEP_PARAM_ATOL = 2e-6
+DRN_STEP_BN_ATOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -409,7 +472,10 @@ def step_profile(step, reps: int = 5):
         torch.cuda.synchronize()
     kernels = []
     for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+        # a user annotation (e.g. "Optimizer.step#AdamW.step") spans kernels
+        # that are listed themselves: counting it would count them twice
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and not \
+                getattr(e, "is_user_annotation", False):
             us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))
             kernels.append((us / reps / 1e3, e.count // reps, e.key[:48]))
@@ -951,6 +1017,599 @@ def drn_profile(device, model, cfg) -> None:
         device_idle_share=1 - dev_ms / step_ms, kernels_per_step=n_k, top=top)
 
 
+def near_tie_free(h, mask, sign: float):
+    """``[B, N, H2]`` True where the row's max (sign 1) or min (sign −1) of
+    the messages ``h [B, N, K, H2]`` over its valid slots is clear: every
+    message not equal to it lies more than 1e-5·(1 + |max|) beyond it.
+    Equal messages (the same gathered row, or saturated elu) are equal in
+    any precision and share the cotangent evenly; where a message lies
+    within the margin, the kernel in f32 and the reference in f64 may
+    pick different slots, so a test cotangent is set to 0 there."""
+    import torch
+
+    v = torch.where(mask[..., None], sign * h, torch.full_like(h, -float("inf")))
+    top = v.max(dim=2).values
+    below = torch.where(v < top[:, :, None], v,
+                        torch.full_like(v, -float("inf"))).max(dim=2).values
+    return ~(top - below <= 1e-5 * (1.0 + top.abs()))
+
+
+def check_edge_mlp_bwd(case: str, a, x, nbr, w_diff, w1, b1, aggr, g0, g1,
+                       gst):
+    """The backward kernel (tie references from its own forward) against
+    edge_mlp_bwd_torch evaluated in f64 on the same inputs: every gradient
+    within GRAD_RTOL·|ref| + GRAD_ATOL·max|ref|.  The reference is f64
+    because the weight gradients sum 10⁵–10⁶ terms of either sign: the
+    f32 plain version's own sums (one long GEMM reduction) are further
+    from the exact value than the kernel's, so the two f32 results can
+    differ by more than the tolerance while each is close to it; the f32
+    plain version's distance is reported beside.  Returns (max abs error,
+    the kernel's gradients, {name: [kernel, f32 plain] max abs error})."""
+    import torch
+    from deepmetv2_tpu_torch.ops.cuda.edge_mlp import edge_mlp_bwd, edge_mlp_fwd
+    from deepmetv2_tpu_torch.ops.edge_mlp import (edge_mlp_bwd_torch,
+                                                  edge_mlp_fwd_torch)
+
+    def plain(dtype):
+        t = [v if v is None else v.to(dtype)
+             for v in (a, x, w_diff, w1, b1, g0, g1, gst)]
+        p0, p1, _ = edge_mlp_fwd_torch(t[0], t[1], nbr, t[2], t[3], t[4], aggr)
+        return edge_mlp_bwd_torch(t[0], t[1], nbr, t[2], t[3], t[4], aggr, p0,
+                                  p1, t[5], t[6], t[7])
+
+    with torch.no_grad():
+        k0, k1, _ = edge_mlp_fwd(a, x, nbr, w_diff, w1, b1, aggr)
+        got = edge_mlp_bwd(a, x, nbr, w_diff, w1, b1, aggr, k0, k1, g0, g1,
+                           gst)
+        ref = plain(torch.float64)
+        p32 = plain(torch.float32)
+    torch.cuda.synchronize()
+    err, info = 0.0, {}
+    for name, k_, r_, p_ in zip(ref._fields, got, ref, p32):
+        d = (k_.double() - r_).abs()
+        tol = GRAD_RTOL * r_.abs() + GRAD_ATOL * float(r_.abs().max())
+        info[name] = [float(d.max()), float((p_.double() - r_).abs().max())]
+        if not bool((d <= tol).all()):
+            fail(f"edge_mlp_bwd case {case} {aggr} {name}: differs from the "
+                 f"plain version in f64 by {float(d.max())} "
+                 f"({int((d > tol).sum())} entries past the tolerance; the "
+                 f"f32 plain version's distance {info[name][1]})")
+        err = max(err, float(d.max()))
+    return err, got, info
+
+
+def train_batch_features(model, device):
+    """The DRN's first train batch of synthetic 2000 at batch 16 and the
+    round-1 cotangents of a real train-mode loss: ``(batch, h, nbr, g0,
+    gst)`` with h the round-1 features and nbr its graph, g0 and gst the
+    cotangents the round-1 EdgeMLP backward receives (the model is a copy,
+    in train mode, so its weights and buffers stay as they are)."""
+    import copy
+    import itertools
+    from unittest import mock
+
+    from deepmetv2_tpu_torch.data import (fetch_dataloader, synthetic_events,
+                                          to_device)
+    from deepmetv2_tpu_torch.data.batching import Neighborhood
+    from deepmetv2_tpu_torch.models.drn import drn_net_apply
+    from deepmetv2_tpu_torch.ops.cuda.edge_mlp import EdgeMLP
+    from deepmetv2_tpu_torch.train.loss import drn_loss_fn
+
+    ld = fetch_dataloader(events=synthetic_events(2000, seed=42),
+                          batch_size=DRN_TRAIN_B)["train"]
+    batch = to_device(next(itertools.islice(iter(ld), 1)), device)
+    m = copy.deepcopy(model).train()
+    calls = []
+    orig = EdgeMLP.backward
+
+    def recorded(ctx, g0, g1, gst):
+        _, x, _, _, _, idx, mask = ctx.saved_tensors[:7]
+        calls.append((x, Neighborhood(idx, mask), g0, gst))
+        return orig(ctx, g0, g1, gst)
+
+    loss = drn_loss_fn(drn_net_apply(m, batch), batch, m.cfg.head)
+    with mock.patch.object(EdgeMLP, "backward", staticmethod(recorded)):
+        loss.backward()
+    # the rounds' backwards run last round first
+    x, nbr, g0, gst = calls[-1]
+    return batch, x.detach(), nbr, g0, gst
+
+
+def kernel_edge_mlp_bwd_phase(device, model):
+    """edge_mlp_bwd against its plain version (in f64, check_edge_mlp_bwd)
+    on (a) the DRN's round-1
+    features of a train batch (B=16, N=2048) with the cotangents of a real
+    train-mode loss, (b) rows of 16 repeated prototypes (exact ties: the
+    max's cotangent is shared evenly), (c) empty rows and padded events at
+    N=1536, (d) a list cut by want_mirror, for add, mean and max; two
+    launches bitwise equal; the conv's parameter gradients against autograd
+    of the plain path; the kernel's time at (a)."""
+    import numpy as np
+    import torch
+    from deepmetv2_tpu_torch.ops.cuda.edge_mlp import (edge_mlp_bwd,
+                                                       edge_mlp_conv,
+                                                       edge_mlp_fwd)
+    from deepmetv2_tpu_torch.ops.cuda.knn_und import knn_und_graph
+    from deepmetv2_tpu_torch.ops.dyn_graph import build_dyn_graph
+    from deepmetv2_tpu_torch.ops.edge_mlp import (bn_combine,
+                                                  edge_mlp_bwd_torch,
+                                                  edge_mlp_fwd_torch,
+                                                  messages_torch)
+
+    rng = np.random.default_rng(11)
+    mlp = {k: {n: v.detach() for n, v in d.items()}
+           for k, d in model.convs[0].mlp.params().items()}
+    w0, b0 = mlp["lin0"]["w"], mlp["lin0"]["b"]
+    w1, b1 = mlp["lin1"]["w"], mlp["lin1"]["b"]
+    H = w0.shape[0] // 2
+    w_diff = w0[H:]
+    F1, H2 = w1.shape
+
+    def node_a(x):
+        with torch.no_grad():
+            return torch.matmul(x, w0[:H] - w_diff) + b0
+
+    def run_case(case, x, nbr, g0, gst):
+        a = node_a(x)
+        out = {}
+        for aggr in ("add", "mean", "max"):
+            gg0, gg1 = g0, None
+            if aggr == "max":
+                with torch.no_grad():
+                    h = messages_torch(*(t.double() for t in (a, x)), nbr,
+                                       *(t.double() for t in (w_diff, w1, b1))
+                                       )[-1]
+                    m = nbr.mask[..., None]
+                    top = torch.where(m, h, torch.full_like(h, -float("inf")))
+                    top = top.max(dim=2).values
+                gg0 = torch.where(near_tie_free(h, nbr.mask, 1.0), g0,
+                                  torch.zeros_like(g0))
+                gg1 = torch.where(near_tie_free(h, nbr.mask, -1.0),
+                                  -0.5 * g0, torch.zeros_like(g0))
+                tied = ((h == top[:, :, None]) & m).sum(2)
+                out["tied_rows_max"] = int((tied > 1).sum())
+                out["zeroed_near_ties"] = int((gg0 == 0).sum()
+                                              - (g0 == 0).sum())
+                del h
+            err, got, out[aggr + "_err_kernel_plain32"] = check_edge_mlp_bwd(
+                case, a, x, nbr, w_diff, w1, b1, aggr, gg0, gg1, gst)
+            out[aggr] = err
+        return a, out
+
+    errs, info = [], {}
+    # (a) the DRN's round-1 features of a train batch, real cotangents
+    batch, h_a, nbr_a, g0_a, gst_a = train_batch_features(model, device)
+    a_a, info["a"] = run_case("a", h_a, nbr_a, g0_a, gst_a)
+    errs += [v for k, v in info["a"].items() if k in ("add", "mean", "max")]
+    B, N, K = nbr_a.mask.shape
+    # (b) 16 prototype rows: many slots of a row carry the same message
+    Bb, Nb = 4, 1024
+    proto = torch.as_tensor(rng.normal(size=(16, H)).astype(np.float32),
+                            device=device)
+    x_b = proto[torch.as_tensor(rng.integers(0, 16, size=(Bb, Nb)),
+                                device=device)]
+    x_b = x_b + torch.as_tensor(rng.integers(0, 2, size=(Bb, Nb, 1)) * 0.5,
+                                dtype=torch.float32, device=device)
+    mask_b = torch.ones(Bb, Nb, dtype=torch.bool, device=device)
+    nbr_b, _, _ = knn_und_graph(x_b, mask_b, k=DRN_K, cap=DRN_CAP)
+    g_b = torch.as_tensor(rng.normal(size=(Bb, Nb, H2)).astype(np.float32),
+                          device=device)
+    gst_b = torch.as_tensor(rng.normal(size=(2, H2)).astype(np.float32) * 1e-3,
+                            device=device)
+    _, info["b"] = run_case("b", x_b, nbr_b, g_b, gst_b)
+    errs += [info["b"][k] for k in ("add", "mean", "max")]
+    if info["b"]["tied_rows_max"] == 0:
+        fail("edge_mlp_bwd case b has no tied maxima: the even split was "
+             "not exercised")
+    # (c) empty rows and padded events at N=1536
+    Nc = 1536
+    x_c = torch.as_tensor(rng.normal(size=(8, Nc, H)).astype(np.float32),
+                          device=device)
+    nv = rng.integers(0, Nc, size=8)
+    nv[0], nv[1] = 0, 3
+    mask_c = torch.as_tensor(np.arange(Nc)[None, :] < nv[:, None],
+                             device=device)
+    nbr_c, _, _ = knn_und_graph(x_c, mask_c, k=DRN_K, cap=DRN_CAP)
+    g_c = torch.as_tensor(rng.normal(size=(8, Nc, H2)).astype(np.float32),
+                          device=device)
+    _, info["c"] = run_case("c", x_c, nbr_c, g_c, gst_b)
+    errs += [info["c"][k] for k in ("add", "mean", "max")]
+    info["c"]["empty_rows"] = int((~nbr_c.mask.any(-1)).sum())
+    # (d) the list of (a) cut to the edges listed both ways by want_mirror
+    g_d = build_dyn_graph(h_a, batch.mask, k=DRN_K, cap=DRN_CAP,
+                          want_mirror=True)
+    _, info["d"] = run_case("d", h_a, g_d.nbr, g0_a, gst_a)
+    errs += [info["d"][k] for k in ("add", "mean", "max")]
+    info["d"]["one_sided_slots_dropped"] = int(nbr_a.mask.sum()
+                                               - g_d.nbr.mask.sum())
+
+    # two launches, bitwise equal (no atomics)
+    with torch.no_grad():
+        k0, _, _ = edge_mlp_fwd(a_a, h_a, nbr_a, w_diff, w1, b1, "add")
+        args = (a_a, h_a, nbr_a, w_diff, w1, b1, "add", k0, None, g0_a, None,
+                gst_a)
+        r1, r2 = edge_mlp_bwd(*args), edge_mlp_bwd(*args)
+    torch.cuda.synchronize()
+    for name, u, v in zip(r1._fields, r1, r2):
+        if not bitwise_equal(u, v):
+            fail(f"edge_mlp_bwd: two launches differ in {name} "
+                 f"({n_differ(u, v)} entries)")
+
+    # the conv's gradients in train mode.  The BatchNorm variance of the
+    # round-1 messages is as small as 1e-3 of their squared mean, so
+    # var = Σh²/n − mean² loses about three digits to the order of the sums
+    # (tests/test_torch_drn_train.py measures it), and a fixed f32 tolerance
+    # between two summation orders does not hold.  The reference is the
+    # plain path in f64: the kernels' gradients must lie within twice the
+    # f32 plain path's own distance from it (per tensor), plus GRAD_ATOL.
+    bn = model.convs[0].bn
+    G = rng.normal(size=(B, N, H2))
+
+    def plain_conv(x, nbr, m, gamma, beta):
+        Hh = x.shape[-1]
+        wd = m["lin0"]["w"][Hh:]
+        a = torch.matmul(x, m["lin0"]["w"][:Hh] - wd) + m["lin0"]["b"]
+        agg0, agg1, stats = edge_mlp_fwd_torch(a, x, nbr, wd, m["lin1"]["w"],
+                                               m["lin1"]["b"], "add")
+        return bn_combine(agg0, agg1, stats, nbr.mask, gamma, beta,
+                          bn.running_mean.to(x.dtype),
+                          bn.running_var.to(x.dtype), True, "add")
+
+    def conv_grads(fn, dtype=torch.float32):
+        leaves = [t.detach().to(dtype).clone().requires_grad_(True)
+                  for t in (h_a, w0, b0, w1, b1, bn.gamma, bn.beta)]
+        x, lw0, lb0, lw1, lb1, gm, bt = leaves
+        m = {"lin0": {"w": lw0, "b": lb0}, "lin1": {"w": lw1, "b": lb1}}
+        if fn is None:
+            out, mean, var = plain_conv(x, nbr_a, m, gm, bt)
+        else:
+            out, mean, var = fn(x, nbr_a, m, gm, bt, bn.running_mean,
+                                bn.running_var, True, "add")
+        g = torch.as_tensor(G, dtype=dtype, device=device)
+        ((out * g).sum() + mean.sum() + var.sum()).backward()
+        return [t.grad.double() for t in leaves]
+
+    conv_err, conv_info = 0.0, {}
+    for name, k_, p_, t_ in zip(("x", "W0", "b0", "W1", "b1", "gamma", "beta"),
+                                conv_grads(edge_mlp_conv), conv_grads(None),
+                                conv_grads(None, torch.float64)):
+        err_k = float((k_ - t_).abs().max())
+        err_p = float((p_ - t_).abs().max())
+        lim = 2.0 * err_p + GRAD_ATOL * float(t_.abs().max())
+        conv_info[name] = {"kernel_vs_f64": err_k, "plain_f32_vs_f64": err_p}
+        if not err_k <= lim:
+            fail(f"gradient of {name} through edge_mlp_conv (train) is "
+                 f"{err_k} from the f64 plain path's, past {lim} (twice the "
+                 f"f32 plain path's {err_p}, plus GRAD_ATOL)")
+        conv_err = max(conv_err, float((k_ - p_).abs().max()))
+
+    # time and bound at (a)
+    edges = int(nbr_a.mask.sum())
+    ms = cuda_ms(lambda: edge_mlp_bwd(*args), 20)
+    plain_ms = cuda_ms(lambda: edge_mlp_bwd_torch(*args), 3)
+    nbytes = (4 * (a_a.numel() + 2 * h_a.numel() + nbr_a.idx.numel()
+                   + 2 * (w_diff.numel() + w1.numel() + b1.numel())
+                   + 2 * B * N * H2 + 2 * H2 + B * N * K * H + a_a.numel())
+              + nbr_a.mask.numel())
+    ops = 6 * (H * F1 + F1 * H2) * edges
+    bound_ms, bound_by, t_bytes, t_ops = bound(nbytes, ops)
+    say("kernel_edge_mlp_bwd", name="edge_mlp_bwd",
+        cases="a,b,c,d x add,mean,max within rtol 1e-5 + 2e-6 max|ref| of "
+              "the plain version in f64; two launches bitwise equal",
+        info=info,
+        max_abs_err=max(errs), conv_grad_max_abs_err=conv_err,
+        conv_grads=conv_info, shape=[B, N, K, H, F1, H2], valid_edges=edges, ms=ms,
+        plain_ms=plain_ms, bytes=nbytes, fp32_ops=ops,
+        bound_bytes_ms=t_bytes, bound_ops_ms=t_ops)
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def drn_train_config(cfg):
+    """``ckpts_syn_drn``'s training recipe on its run config: batch 16, the
+    global-norm clip 10."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, optim=dataclasses.replace(cfg.optim, grad_clip_norm=10.0),
+        data=dataclasses.replace(cfg.data, batch_size=DRN_TRAIN_B))
+
+
+def drn_plain_f64_step(model, opt_state, tcfg, host, rounds):
+    """The port's plain DRN train step in f64 on the CPU from ``model`` (a
+    CPU copy taken before the step) and ``opt_state`` (the optimizer's
+    state_dict then), on the graphs ``rounds`` [(nbr, cluster, partner)]
+    another run of the step built: they are injected in place of the graph
+    build and the matching, whose decisions could differ at near-ties in
+    f64.  Returns ``(loss, the model after the step)``; its ``.grad`` holds
+    the clipped gradients."""
+    from unittest import mock
+
+    import torch
+    from deepmetv2_tpu_torch.data import to_device
+    from deepmetv2_tpu_torch.data.batching import Neighborhood
+    from deepmetv2_tpu_torch.models import drn as tdrn
+    from deepmetv2_tpu_torch.ops.dyn_graph import DynGraph
+    from deepmetv2_tpu_torch.train.step import (make_drn_train_step,
+                                                make_optimizer)
+
+    ref = model.to(torch.float64)
+    opt = make_optimizer(tcfg, ref)
+    opt.load_state_dict(opt_state)
+    batch = to_device(host, "cpu")
+    batch = batch._replace(x_cont=batch.x_cont.double(), y=batch.y.double())
+    graphs, matches = iter(rounds), iter(rounds)
+
+    def graph(h, mask, **kw):
+        nbr = next(graphs)[0]
+        return DynGraph(nbr=Neighborhood(nbr.idx.cpu(), nbr.mask.cpu()),
+                        d2v=None, t=None, h0=h)
+
+    def match(g, h, mask, *a, **kw):
+        _, cluster, partner = next(matches)
+        return cluster.cpu(), partner.cpu()
+
+    with mock.patch.object(tdrn, "build_dyn_graph", graph), \
+            mock.patch.object(tdrn, "cut_matching", match):
+        loss = make_drn_train_step(tcfg)(ref, opt, batch)
+    return float(loss), ref
+
+
+def drn_step_against_f64(model, opt, tcfg, host, device):
+    """One DRN train step of ``model`` on ``device``, held to
+    ``drn_plain_f64_step`` on the graphs it built (the tolerances and their
+    readings at DRN_STEP_LOSS_RTOL).  Returns ``(loss, rounds, info)`` with
+    ``rounds`` each round's (mask, nbr, cluster, partner)."""
+    import copy
+    from unittest import mock
+
+    from deepmetv2_tpu_torch.data import to_device
+    from deepmetv2_tpu_torch.models import drn as tdrn
+    from deepmetv2_tpu_torch.train.step import make_drn_train_step
+
+    before = copy.deepcopy(model).cpu(), copy.deepcopy(opt.state_dict())
+    match = tdrn.cut_matching
+    rounds = []
+
+    def recorded(g, h, mask, *a, **kw):
+        cluster, partner = match(g, h, mask, *a, **kw)
+        rounds.append((mask, g.nbr, cluster, partner))
+        return cluster, partner
+
+    with mock.patch.object(tdrn, "cut_matching", recorded):
+        loss = float(make_drn_train_step(tcfg)(model, opt,
+                                               to_device(host, device)))
+    ref_loss, ref = drn_plain_f64_step(*before, tcfg, host,
+                                       [r[1:] for r in rounds])
+    info = {"loss": loss, "f64_loss": ref_loss,
+            "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss)}
+    if not info["loss_rel_err"] <= DRN_STEP_LOSS_RTOL:
+        fail(f"DRN train step: loss {loss} is {info['loss_rel_err']} from the "
+             f"plain step's in f64 ({ref_loss}), past {DRN_STEP_LOSS_RTOL}")
+    worst = {"grad": 0.0, "param": 0.0, "bn": 0.0}
+    for (path, got), (_, want) in zip(model.jax_layout(), ref.jax_layout()):
+        checks = [("bn", got, want, DRN_STEP_BN_ATOL, True)]
+        if path[0] == "params":
+            checks = [("param", got, want, DRN_STEP_PARAM_ATOL, False),
+                      ("grad", got.grad, want.grad, DRN_STEP_GRAD_ATOL, True)]
+        for kind, g, w, tol, scaled in checks:
+            g, w = g.detach().cpu().double(), w.detach().double()
+            scale = float(w.abs().max()) if scaled else 1.0
+            err = float((g - w).abs().max()) / (scale or 1.0)
+            worst[kind] = max(worst[kind], err)
+            if not err <= tol:
+                fail(f"DRN train step: {kind} of {path} is {err} from the "
+                     f"plain step's in f64 (scaled by its max: {scaled}), "
+                     f"past {tol}")
+    info.update({f"max_{k}_err": v for k, v in worst.items()})
+    return loss, rounds, info
+
+
+def drn_train_resume_phase(device, cfg):
+    """10 DRN train steps from ckpts_syn_drn/best.ckpt (weights, BatchNorm,
+    the optax chain's AdamW state, scheduler) on the first 10 train batches
+    of synthetic 2000 at batch 16, each loss held to GOLDEN_DRN_TRAIN_LOSSES
+    by the rule stated there, and step 0 to the port's plain step in f64
+    (drn_step_against_f64).  Returns the trained model and its
+    optimizer."""
+    import itertools
+    from unittest import mock
+
+    import numpy as np
+    from deepmetv2_tpu_torch.data import (fetch_dataloader, synthetic_events,
+                                          to_device)
+    from deepmetv2_tpu_torch.models import drn as tdrn
+    from deepmetv2_tpu_torch.train.checkpoint import restore_checkpoint
+    from deepmetv2_tpu_torch.train.schedule import ReduceLROnPlateau
+    from deepmetv2_tpu_torch.train.step import (make_drn_train_step,
+                                                make_optimizer)
+
+    tcfg = drn_train_config(cfg)
+    model = tdrn.DRN(tcfg.drn, device=device)
+    opt = make_optimizer(tcfg, model)
+    sched = ReduceLROnPlateau(lr=tcfg.optim.lr)
+    payload = restore_checkpoint(os.path.join(HERE, DRN_CKPTS, "best.ckpt"),
+                                 model, opt, sched)
+    ld = fetch_dataloader(events=synthetic_events(2000, seed=42),
+                          batch_size=DRN_TRAIN_B)["train"]
+    step = make_drn_train_step(tcfg)
+    match = tdrn.cut_matching
+    losses, graphs = [], []
+    hosts = itertools.islice(iter(ld), len(GOLDEN_DRN_TRAIN_LOSSES))
+    loss0, rounds, step0 = drn_step_against_f64(model, opt, tcfg, next(hosts),
+                                                device)
+    losses.append(loss0)
+    graphs.append(drn_graph_digests([[t.cpu().numpy() for t in (
+        m, nbr.idx, nbr.mask, c, p)] for m, nbr, c, p in rounds]))
+    del rounds
+    for host in hosts:
+        rounds = []
+
+        def recorded(g, h, mask, *a, **kw):
+            cluster, partner = match(g, h, mask, *a, **kw)
+            rounds.append([t.cpu().numpy() for t in
+                           (mask, g.nbr.idx, g.nbr.mask, cluster, partner)])
+            return cluster, partner
+
+        with mock.patch.object(tdrn, "cut_matching", recorded):
+            losses.append(float(step(model, opt, to_device(host, device))))
+        graphs.append(drn_graph_digests(rounds))
+    gold = np.load(os.path.join(HERE, GOLDEN_DRN_TRAIN_GRAPHS))
+    same = [bool(np.array_equal(g, w)) for g, w in zip(graphs, gold)]
+    held = int(np.argmin(same + [False]))     # steps before the first change
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, GOLDEN_DRN_TRAIN_LOSSES)]
+    say("drn_train_resume", epoch=payload["epoch"], adam_count=payload["step"],
+        losses=losses, golden=GOLDEN_DRN_TRAIN_LOSSES, rel_err=rel,
+        steps_with_jax_graphs=[i for i, v in enumerate(same) if v],
+        events_with_other_graphs=[int((g != w).any(-1).sum())
+                                  for g, w in zip(graphs, gold)],
+        steps_held_at_loss_rtol=held, step0_against_plain_f64=step0)
+    for i, r in enumerate(rel):
+        lim = LOSS_RTOL if i < held else DRN_TRAIN_LATE_RTOL
+        if not r <= lim:
+            fail(f"DRN resumed train step {i}: loss {losses[i]} is {r} from "
+                 f"the JAX package's {GOLDEN_DRN_TRAIN_LOSSES[i]}, not within "
+                 f"{lim}")
+    return model, opt, tcfg
+
+
+def drn_train_counters():
+    from deepmetv2_tpu_torch.ops.cuda.edge_mlp import edge_mlp_bwd
+
+    return dict(drn_counters(), edge_mlp_bwd=edge_mlp_bwd)
+
+
+def drn_train_phase(work: str):
+    """The train CLI with --model drn: 2 epochs into build/smoke/drn_train
+    and a resume to 3; exact launch counts; artifacts; finite losses, epoch
+    2's train loss below epoch 1's; best.ckpt re-evaluated by the evaluate
+    CLI.  Returns the launches per kernel over both runs."""
+    import numpy as np
+    import torch
+    from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
+    from deepmetv2_tpu_torch.cli import train as train_cli
+
+    ck = os.path.join(work, "drn_train")
+    base = ["--model", "drn", "--drn_head", "cartesian", "--synthetic", "2000",
+            "--batch_size", str(DRN_TRAIN_B), "--grad_clip", "10",
+            "--plateau_patience", "10", "--bn_refresh", str(DRN_REFRESH),
+            "--ckpts", ck]
+    steps, evals, rounds = 100, 25, 2        # per epoch: 1600 / 16, 400 / 16
+    counters = drn_train_counters()
+    total = {k: 0 for k in counters}
+    for argv, epochs in ((["--epochs", "2"], 2),
+                         (["--epochs", "3", "--restore_file", "last"], 1)):
+        for fn in counters.values():
+            fn.launches = 0
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = train_cli.main(base + argv)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        launches = {k: fn.launches for k, fn in counters.items()}
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith(("drn:", "Training epoch", "- Eval",
+                                   "Restarting"))]
+        say("drn_train", argv=argv, seconds=sec, launches=launches, log=lines)
+        if rc != 0:
+            fail(f"DRN train CLI {argv} exited {rc}")
+        fwd = epochs * (steps + DRN_REFRESH + evals) * rounds
+        want = {k: fwd for k in drn_counters()}
+        want["edge_mlp_bwd"] = epochs * steps * rounds
+        if launches != want:
+            fail(f"DRN train CLI {argv}: launches {launches}, want {want}")
+        for k, v in launches.items():
+            total[k] += v
+    for f in ("loss.log", "metrics_val_best.json", "metrics_val_last.json",
+              "best.resolutions", "last.resolutions", "best.ckpt", "last.ckpt",
+              "config.json"):
+        if not os.path.exists(os.path.join(ck, f)):
+            fail(f"DRN train CLI wrote no {f}")
+    rows = [ln.split(",") for ln in open(os.path.join(ck, "loss.log"))
+            if ln[:1].isdigit()]
+    if [r[0] for r in rows] != ["1", "2", "3"] or not all(
+            np.isfinite(float(v)) for r in rows for v in r[1:]):
+        fail(f"DRN loss.log rows are not epochs 1-3 with finite losses: {rows}")
+    if not float(rows[1][1]) < float(rows[0][1]):
+        fail(f"DRN train loss did not fall from epoch 1 to 2: {rows}")
+    with open(os.path.join(ck, "metrics_val_best.json")) as f:
+        best = json.load(f)["loss"]
+    ev = os.path.join(work, "drn_train_eval")
+    os.makedirs(ev)
+    for f in ("config.json", "best.ckpt"):
+        shutil.copy(os.path.join(ck, f), ev)
+    got = evaluate_cli.run(["--model", "drn", "--synthetic", "2000", "--ckpts",
+                            ev, "--batch_size", str(DRN_TRAIN_B)])["loss"]
+    rel = abs(got - best) / abs(best)
+    say("drn_train_reeval", metrics_val_best=best, evaluate_cli=got,
+        rel_err=rel, loss_log=[",".join(r).strip() for r in rows])
+    if not rel <= REEVAL_RTOL:
+        fail(f"evaluate CLI gives {got} on the DRN train CLI's best.ckpt, not "
+             f"within {REEVAL_RTOL} of its metrics_val_best.json {best}")
+    return total
+
+
+def probe_phase(device):
+    """The pipelined window forward (the revolver probe's port) through the
+    probe module, which holds it bitwise to window_max_fwd and the plain
+    version at both probe shapes and times both kernels; then its error,
+    the plain version's time and the bound at the first shape.  Returns
+    (the probe's launches, the kernel-line entries)."""
+    import torch
+    from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import \
+        window_max_pipelined
+    from deepmetv2_tpu_torch.ops.window import window_max_torch
+    from deepmetv2_tpu_torch.probes import window_revolver
+
+    window_max_pipelined.launches = 0
+    rows = window_revolver.run(device)
+    launches = window_max_pipelined.launches
+    B, N, H = window_revolver.SHAPES[0]
+    c, pos, halo = window_revolver.probe_inputs(B, N, H, seed=N + H,
+                                                device=device)
+    r2 = window_revolver.R ** 2
+    ones = torch.ones(B, N, dtype=torch.bool, device=device)
+    got = window_max_pipelined(c, pos, r2, halo)
+    plain = window_max_torch(c, pos, ones, r2, halo)
+    fin = torch.isfinite(plain)
+    if not (torch.equal(torch.isfinite(got), fin) and bitwise_equal(got, plain)):
+        fail("window_max_fwd_pipelined differs from the plain version")
+    err = float((got[fin] - plain[fin]).abs().max())
+    plain_ms = cuda_ms(lambda: window_max_torch(c, pos, ones, r2, halo), 3)
+    mask = pos[..., 0] < 1e8
+    pairs, adj = window_work(pos, mask, halo, r2)
+    bound_ms, bound_by, _, _ = bound(4 * (2 * c.numel() + pos.numel()),
+                                     6 * pairs + H * adj)
+    first = rows[f"{B}x{N}x{H}"]
+    say("probe", name="window_max_fwd_pipelined", shapes=rows,
+        launches=launches, max_abs_err=err, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, at=[B, N, H])
+    return launches, {"max_abs_err": err, "ms": first["pipelined_ms"],
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+
+
+def drn_train_profile(device, model, opt, tcfg) -> None:
+    """One DRN train step (16 events, N=2048): step time from CUDA events,
+    device time by kernel from torch.profiler."""
+    import itertools
+
+    from deepmetv2_tpu_torch.data import (fetch_dataloader, synthetic_events,
+                                          to_device)
+    from deepmetv2_tpu_torch.train.step import make_drn_train_step
+
+    ld = fetch_dataloader(events=synthetic_events(2000, seed=42),
+                          batch_size=DRN_TRAIN_B)["train"]
+    batch = to_device(next(itertools.islice(iter(ld), 1)), device)
+    step = make_drn_train_step(tcfg)
+    step_ms = cuda_ms(lambda: step(model, opt, batch), 10)
+    dev_ms, n_k, top = step_profile(lambda: step(model, opt, batch), reps=3)
+    say("profile", step="drn_train", batch=[batch.batch_size, batch.max_nodes],
+        step_ms=step_ms, device_ms=dev_ms, device_busy_share=dev_ms / step_ms,
+        device_idle_share=1 - dev_ms / step_ms, kernels_per_step=n_k, top=top)
+
+
 def main() -> int:
     import torch
 
@@ -1069,8 +1728,22 @@ def main() -> int:
     profile_phase(device, ck)
     drn_profile(device, drn, drn_cfg)
 
+    # 14. the DRN's edge-MLP backward kernel against its plain version
+    emlp_bwd = kernel_edge_mlp_bwd_phase(device, drn)
+
+    # 15-16. main path: DRN training, resumed from the JAX checkpoint, then
+    # the train CLI
+    drn_t, drn_opt, drn_tcfg = drn_train_resume_phase(device, drn_cfg)
+    drn_train = drn_train_phase(work)
+
+    # 17. the revolver probe's kernel
+    probe_launches, probe = probe_phase(device)
+
+    # 18. where one DRN train step's time goes
+    drn_train_profile(device, drn_t, drn_opt, drn_tcfg)
+
     def runs(name):
-        return drn_eval[name] + drn_pred[name]
+        return drn_eval[name] + drn_pred[name] + drn_train[name]
 
     src = "deepmetv2_tpu_torch/csrc/"
     print(json.dumps({"kernels": [dict({
@@ -1094,7 +1767,17 @@ def main() -> int:
             "source": src + "edge_mlp.cu",
             "replaces": "deepmetv2_tpu/ops/pallas/edge_mlp.py:93",
             "launches": runs("edge_mlp_fwd"), "library_ms": None},
-            **emlp)]}), flush=True)
+            **emlp), dict({
+            "name": "edge_mlp_bwd", "route": "cuda",
+            "source": src + "edge_mlp.cu",
+            "replaces": "deepmetv2_tpu/ops/pallas/edge_mlp.py:121",
+            "launches": drn_train["edge_mlp_bwd"], "library_ms": None},
+            **emlp_bwd), dict({
+            "name": "window_max_fwd_pipelined", "route": "cuda",
+            "source": src + "window_max.cu",
+            "replaces": "scripts/window_revolver_probe.py:37",
+            "launches": probe_launches, "library_ms": None}, **probe)]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,12 +4,18 @@
     python -m deepmetv2_tpu_torch.cli.train --data data_dytt --ckpts ckpts_dytt
     python -m deepmetv2_tpu_torch.cli.train --synthetic 2000 --batch_size 8 \\
         --ckpts ckpts_port [--restore_file last] [--device cpu]
+    python -m deepmetv2_tpu_torch.cli.train --model drn --drn_head cartesian \\
+        --synthetic 2000 --batch_size 16 --grad_clip 10 --plateau_patience 10 \\
+        --bn_refresh 30 --ckpts ckpts_drn [--restore_file last] [--device cpu]
 
 GraphMET in window mode: the loaders presort each batch on the host (cell
-order by default), the halo is sized from the order they emit, and AdamW
-with the plateau scheduler trains on one device.  ``--restore_file``
-resumes from a checkpoint of either package.  The JAX flags of paths not
-ported yet are accepted and exit non-zero with "not ported yet".
+order by default), the halo is sized from the order they emit.  The DRN
+(``--model drn``): no presort (it builds its own graphs), ``datanorm`` set
+to 1/std of each feature over the training candidates and the output scale
+to the training set's mean |genMET|, as the JAX CLI does.  AdamW with the
+plateau scheduler trains either on one device; ``--restore_file`` resumes
+from a checkpoint of either package.  The JAX flags of paths not ported
+yet are accepted and exit non-zero with "not ported yet".
 """
 
 from __future__ import annotations
@@ -17,11 +23,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
+import numpy as np
 import torch
 
 from deepmetv2_tpu_torch.cli.common import apply_graph_mode, resolve_device
 from deepmetv2_tpu_torch.config import Config, DataConfig
 from deepmetv2_tpu_torch.data import fetch_dataloader, synthetic_events
+from deepmetv2_tpu_torch.models.drn import DRN
 from deepmetv2_tpu_torch.models.graph_met import GraphMET
 from deepmetv2_tpu_torch.train.loop import fit
 from deepmetv2_tpu_torch.train.step import make_optimizer
@@ -57,33 +65,56 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions of the kernels)")
-    # the JAX package's flags of paths that are not ported yet
-    p.add_argument("--model", choices=["graphmet", "drn"], default="graphmet")
+    p.add_argument("--model", choices=["graphmet", "drn"], default="graphmet",
+                   help="model family: the weight regressor GraphMET or the "
+                        "DynamicReductionNetwork")
+    p.add_argument("--drn_aggr", choices=["add", "max", "mean"], default=None,
+                   help="DRN EdgeConv aggregation (default add)")
+    p.add_argument("--drn_head", choices=["polar", "cartesian"], default=None,
+                   help="DRN output head (default polar)")
     p.add_argument("--graph_mode", choices=["window", "neighbor_list"],
                    default="window")
+    # the JAX package's flags of paths that are not ported yet
     p.add_argument("--compute_dtype", choices=["float32", "bfloat16"],
                    default=None)
     p.add_argument("--from_torch", default=None)
     p.add_argument("--mesh", default=None, metavar="DxN")
     p.add_argument("--ring_knn", action="store_true")
-    p.add_argument("--drn_aggr", choices=["add", "max", "mean"], default=None)
-    p.add_argument("--drn_head", choices=["polar", "cartesian"], default=None)
     return p
 
 
 def unported(args) -> list:
     """The flags given that select a path the port does not have yet."""
     out = []
-    if args.model != "graphmet":
-        out.append(f"--model {args.model}")
     if args.graph_mode != "window":
         out.append(f"--graph_mode {args.graph_mode}")
     if args.compute_dtype not in (None, "float32"):
         out.append(f"--compute_dtype {args.compute_dtype}")
-    for flag in ("from_torch", "mesh", "ring_knn", "drn_aggr", "drn_head"):
+    for flag in ("from_torch", "mesh", "ring_knn"):
         if getattr(args, flag):
             out.append(f"--{flag}")
     return out
+
+
+def drn_data_init(dataset, indices):
+    """``(norm, met_bias)`` from the training split, as the JAX CLI derives
+    them (cli/train.py:246-277): ``norm`` 1/std of each input feature over
+    every training candidate (one streaming float64 pass; 1 where the std
+    is below 1e-6), ``met_bias`` the mean |genMET| of the training events
+    (0 for an empty split)."""
+    qts = [float(np.hypot(dataset[int(i)][1][0], dataset[int(i)][1][1]))
+           for i in indices]
+    met_bias = float(np.mean(qts)) if qts else 0.0
+    n_feat = dataset[int(indices[0])][0].shape[1]
+    cnt, s1, s2 = 0, np.zeros(n_feat), np.zeros(n_feat)
+    for i in indices:
+        x = dataset[int(i)][0]
+        cnt += x.shape[0]
+        s1 += x.sum(axis=0)
+        s2 += (x.astype(np.float64) ** 2).sum(axis=0)
+    var = np.maximum(s2 / cnt - (s1 / cnt) ** 2, 0.0)
+    std = np.sqrt(var)
+    return tuple(1.0 / np.where(std > 1e-6, std, 1.0)), met_bias
 
 
 def main(argv=None) -> int:
@@ -102,34 +133,56 @@ def main(argv=None) -> int:
     train = {k: v for k, v in (("epochs", args.epochs),
                                ("bn_refresh_batches", args.bn_refresh))
              if v is not None}
+    drn = {k: v for k, v in (("aggr", args.drn_aggr),
+                             ("head", args.drn_head)) if v is not None}
     cfg = dataclasses.replace(
         cfg, optim=dataclasses.replace(cfg.optim, **optim),
-        train=dataclasses.replace(cfg.train, **train))
+        train=dataclasses.replace(cfg.train, **train),
+        drn=dataclasses.replace(cfg.drn, **drn))
+    is_drn = args.model == "drn"
+    if is_drn and cfg.drn.head == "polar":
+        # the JAX CLI's warning (cli/train.py:181-189): on its 150-epoch
+        # synthetic run the softplus MET went to 0 and the sigmoid phi to pi
+        # within one epoch, and training froze
+        print("warning: the polar DRN head saturates easily and can freeze "
+              "training (softplus MET -> 0, sigmoid phi -> pi); "
+              "--drn_head cartesian is the robust choice")
 
-    # the loaders presort each batch once on the host (memoized) and the
-    # config is marked presorted, so the steps never sort on the device
+    # GraphMET: the loaders presort each batch once on the host (memoized)
+    # and the config is marked presorted, so the steps never sort on the
+    # device.  The DRN builds its own graphs: no presort.
     sort_mode = args.sort_mode or "cell"
     kw = dict(batch_size=cfg.data.batch_size,
               validation_split=cfg.data.validation_split,
               buckets=cfg.data.node_buckets, mode=args.mode,
-              presort_eta=True, presort_mode=sort_mode,
+              presort_eta=not is_drn, presort_mode=sort_mode,
               presort_r=cfg.graph.delta_r)
     if args.synthetic:
         loaders = fetch_dataloader(events=synthetic_events(args.synthetic,
                                                            seed=42), **kw)
     else:
         loaders = fetch_dataloader(data_dir=args.data, **kw)
-    cfg = apply_graph_mode(cfg, args, loaders["train"].dataset,
-                           presorted=True,
-                           loaders=[loaders["train"], loaders["test"]])
+    cfg = apply_graph_mode(
+        cfg, args, loaders["train"].dataset, presorted=not is_drn,
+        loaders=None if is_drn else [loaders["train"], loaders["test"]])
     print(len(loaders["train"]), len(loaders["test"]))
-    print(f"graph mode: window (halo {cfg.graph.window_halo}, "
-          f"order {sort_mode})")
+    print(f"graph mode: window (halo {cfg.graph.window_halo}, order "
+          f"{'eta (device sort)' if is_drn else sort_mode})")
     print("device:", device,
           torch.cuda.get_device_name(device) if device.type == "cuda" else "")
 
-    model = GraphMET(cfg.model,
-                     generator=torch.Generator().manual_seed(args.seed))
+    gen = torch.Generator().manual_seed(args.seed)
+    if is_drn:
+        norm, met_bias = drn_data_init(loaders["train"].dataset,
+                                       loaders["train"].indices)
+        if met_bias > 0:
+            cfg = dataclasses.replace(
+                cfg, drn=dataclasses.replace(cfg.drn, output_scale=met_bias))
+        print(f"drn: output scale = mean |genMET| = {met_bias:.1f}; "
+              f"datanorm from training-set feature stds")
+        model = DRN(cfg.drn, generator=gen, norm=norm, met_bias=met_bias)
+    else:
+        model = GraphMET(cfg.model, generator=gen)
     model.to(device)
     optimizer = make_optimizer(cfg, model)
     fit(model, optimizer, cfg, loaders["train"], loaders["test"], args.ckpts,

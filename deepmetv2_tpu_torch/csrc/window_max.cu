@@ -34,6 +34,18 @@
 // The TPU kernel's lane packing, supertile DMA and eta/phi chunk prune are
 // TPU mechanics and are not carried over.
 //
+// PIPELINED FORWARD (window_max_fwd_pipelined).  Replaces the Pallas TPU
+// kernel scripts/window_revolver_probe.py (_revolver_fwd_kernel, reached
+// through _revolver_impl), the forward with its window copies
+// double-buffered, written as a measurement probe.  The same function and
+// design as the forward, with the 32-row chunks staged through two
+// shared-memory buffers by cp.async: chunk k+1 is in flight while chunk k
+// is reduced.  A max selects one of its inputs exactly and the chunks are
+// taken in the same order, so it equals window_max_fwd and the plain
+// version bit for bit.  It bounds like the forward (bytes); nothing on the
+// main path calls it (deepmetv2_tpu_torch/probes/window_revolver.py times
+// it against window_max_fwd).
+//
 // BACKWARD.  Replaces the Pallas TPU kernel _bwd_kernel of the same file
 // (reached through _window_max_bwd, the custom VJP of window_max).
 // Computes, for the forward's c and m, the gradient g of m, and pos:
@@ -62,6 +74,7 @@
 // forward, the kernel itself is limited by instruction throughput (times
 // in PERF.md).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -261,6 +274,117 @@ cudaError_t launch(const float* c, const float* pos, float* out, int B, int N,
   return cudaGetLastError();
 }
 
+// The forward with its chunks double-buffered through cp.async (see the
+// file's notes): stage k+1 is issued before chunk k is reduced.
+template <int NH>  // ceil(H / 32) features per lane
+__global__ void __launch_bounds__(WARPS * 32)
+window_max_fwd_pipelined_kernel(const float* __restrict__ c,
+                                const float* __restrict__ pos,
+                                float* __restrict__ out, int N, int H,
+                                int halo, float r2) {
+  extern __shared__ float smem[];
+  const int stage_floats = CHUNK * H + 2 * CHUNK;
+  // buffer s: c rows [CHUNK][H], then eta [CHUNK], then phi [CHUNK]
+
+  constexpr int QPW = ROWS / WARPS;   // query rows per warp
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * ROWS;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const float* cb = c + static_cast<size_t>(b) * N * H;
+  const float* pb = pos + static_cast<size_t>(b) * N * 2;
+
+  float qe[QPW], qp[QPW], acc[QPW][NH];
+#pragma unroll
+  for (int j = 0; j < QPW; ++j) {
+    const int q = t0 + warp * QPW + j;
+    qe[j] = q < N ? pb[2 * q] : 0.f;
+    qp[j] = q < N ? pb[2 * q + 1] : 0.f;
+#pragma unroll
+    for (int t = 0; t < NH; ++t) acc[j][t] = -CUDART_INF_F;
+  }
+
+  const int lo = max(0, t0 - halo);
+  const int hi = min(N, t0 + ROWS + halo);
+  const int nch = (hi - lo + CHUNK - 1) / CHUNK;
+  auto stage = [&](int k) {
+    float* buf = smem + (k & 1) * stage_floats;
+    const int s0 = lo + k * CHUNK;
+    const int rows = min(CHUNK, hi - s0);
+    const float* src = cb + static_cast<size_t>(s0) * H;
+    for (int i = threadIdx.x; i < rows * H; i += WARPS * 32)
+      __pipeline_memcpy_async(buf + i, src + i, sizeof(float));
+    if (threadIdx.x < rows) {
+      __pipeline_memcpy_async(buf + CHUNK * H + threadIdx.x,
+                              pb + 2 * (s0 + threadIdx.x), sizeof(float));
+      __pipeline_memcpy_async(buf + CHUNK * H + CHUNK + threadIdx.x,
+                              pb + 2 * (s0 + threadIdx.x) + 1, sizeof(float));
+    }
+    __pipeline_commit();
+  };
+
+  if (nch > 0) stage(0);
+  for (int k = 0; k < nch; ++k) {
+    if (k + 1 < nch) {
+      stage(k + 1);              // its buffer was freed by the last barrier
+      __pipeline_wait_prior(1);  // chunk k has landed (this thread's part)
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();             // ... and every thread's part
+    const float* c_s = smem + (k & 1) * stage_floats;
+    const float* e_s = c_s + CHUNK * H;
+    const float* p_s = e_s + CHUNK;
+    const int s0 = lo + k * CHUNK;
+    const int rows = min(CHUNK, hi - s0);
+    const int s = s0 + lane;  // this lane's source row
+#pragma unroll
+    for (int j = 0; j < QPW; ++j) {
+      const int q = t0 + warp * QPW + j;
+      if (q >= N) break;  // warp-uniform
+      const bool in = lane < rows && s >= q - halo && s <= q + halo;
+      const bool adj =
+          in && window_adjacent(qe[j], qp[j], e_s[lane], p_s[lane], r2);
+      unsigned bits = __ballot_sync(0xffffffffu, adj);
+      while (bits) {
+        const int kk = __ffs(bits) - 1;
+        bits &= bits - 1;
+        const float* row = c_s + kk * H;
+#pragma unroll
+        for (int t = 0; t < NH; ++t) {
+          const int h = lane + 32 * t;
+          if (h < H) acc[j][t] = fmaxf(acc[j][t], row[h]);
+        }
+      }
+    }
+    __syncthreads();             // chunk k's buffer may be refilled
+  }
+
+#pragma unroll
+  for (int j = 0; j < QPW; ++j) {
+    const int q = t0 + warp * QPW + j;
+    if (q >= N) break;
+    float* o = out + (static_cast<size_t>(b) * N + q) * H;
+#pragma unroll
+    for (int t = 0; t < NH; ++t) {
+      const int h = lane + 32 * t;
+      if (h < H) o[h] = acc[j][t];
+    }
+  }
+}
+
+template <int NH>
+cudaError_t launch_pipelined(const float* c, const float* pos, float* out,
+                             int B, int N, int H, int halo, float r2,
+                             cudaStream_t stream) {
+  const dim3 grid((N + ROWS - 1) / ROWS, B);
+  const size_t smem = 2 * (static_cast<size_t>(CHUNK) * H + 2 * CHUNK) *
+                      sizeof(float);
+  window_max_fwd_pipelined_kernel<NH><<<grid, WARPS * 32, smem, stream>>>(
+      c, pos, out, N, H, halo, r2);
+  return cudaGetLastError();
+}
+
 template <int NH>
 cudaError_t launch_bwd(const float* c, const float* pos, const float* m,
                        const float* g, float* dc, int B, int N, int H,
@@ -286,6 +410,21 @@ extern "C" int window_max_fwd(const float* c, const float* pos, float* out,
     case 2: return launch<2>(c, pos, out, B, N, H, halo, r2, stream);
     case 3: return launch<3>(c, pos, out, B, N, H, halo, r2, stream);
     case 4: return launch<4>(c, pos, out, B, N, H, halo, r2, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// C interface of the pipelined forward; the same contract as window_max_fwd.
+extern "C" int window_max_fwd_pipelined(const float* c, const float* pos,
+                                        float* out, int B, int N, int H,
+                                        int halo, float r2,
+                                        cudaStream_t stream) {
+  if (B <= 0 || N <= 0) return 0;
+  switch ((H + 31) / 32) {
+    case 1: return launch_pipelined<1>(c, pos, out, B, N, H, halo, r2, stream);
+    case 2: return launch_pipelined<2>(c, pos, out, B, N, H, halo, r2, stream);
+    case 3: return launch_pipelined<3>(c, pos, out, B, N, H, halo, r2, stream);
+    case 4: return launch_pipelined<4>(c, pos, out, B, N, H, halo, r2, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

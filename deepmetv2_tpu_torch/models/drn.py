@@ -1,6 +1,6 @@
 """DynamicReductionNetwork — the graph-coarsening model family (the JAX
 package's ``models/drn.py``; reference model/dynamic_reduction_network.py:
-27-103), serving path.
+27-103).
 
 Per reduction round (``pool_rounds``, 2 in ``ckpts_syn_drn``):
   1. the symmetrized feature-space kNN graph of the current features (the
@@ -14,23 +14,30 @@ Per reduction round (``pool_rounds``, 2 in ``ckpts_syn_drn``):
 Then the per-event max pool and the output MLP, under a polar or a
 cartesian head.
 
+In training mode (``model.train()``) each round's BatchNorm normalizes
+with the batch statistics of the valid edge messages and updates its
+running buffers as the JAX package does; the gradient runs through the
+edge-MLP backward kernel (ops/cuda/edge_mlp.py:EdgeMLP).  The constructor
+is the JAX package's ``drn_init``: the data-derived ``datanorm`` (a
+trainable parameter, as there) and, for the polar head, the softplus⁻¹
+``met_bias`` of the MET logit.
+
 Parameters keep the JAX package's names and ``[in, out]`` layout, so
-``params_from_jax`` reads a JAX checkpoint unchanged.  Only evaluation is
-ported: the data-derived initialization, the train-mode BatchNorm update
-and the kernels' backward belong to the DRN training slice (ROADMAP A10).
+``params_from_jax`` reads a JAX checkpoint unchanged and ``params_to_jax``
+writes one (models/layout.py).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Iterator, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from deepmetv2_tpu_torch.config import DRNConfig
 from deepmetv2_tpu_torch.data.batching import EventBatch, Neighborhood
-from deepmetv2_tpu_torch.models.graph_met import _leaf
+from deepmetv2_tpu_torch.models.layout import JaxLayout
 from deepmetv2_tpu_torch.nn.core import MLP, MaskedBatchNorm
 from deepmetv2_tpu_torch.ops import edge_mlp
 from deepmetv2_tpu_torch.ops.coarsen import global_max_pool, max_pool
@@ -57,20 +64,34 @@ class DRNConv(nn.Module):
         self.bn = MaskedBatchNorm(H, device)
 
 
-class DRN(nn.Module):
+class DRN(JaxLayout):
     """The JAX package's ``drn_init`` tree as modules (torch's default
-    initialization from ``generator``; weights normally come from a
-    checkpoint through ``params_from_jax``); ``forward`` is ``drn_apply``."""
+    initialization from ``generator``); ``forward`` is ``drn_apply``.
+    ``norm`` is the input scale per feature (default ``DEFAULT_NORM``);
+    ``met_bias`` > 0 sets the polar head's MET logit bias to
+    softplus⁻¹(met_bias / output_scale), so that the head starts on the
+    scale of the training set's mean |genMET| (JAX ``drn_init``)."""
 
     def __init__(self, cfg: DRNConfig = DRNConfig(),
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 norm: Optional[Sequence[float]] = None,
+                 met_bias: float = 0.0):
         super().__init__()
         self.cfg = cfg
         H, g, d = cfg.hidden_dim, generator, device
+        if norm is None:
+            norm = DEFAULT_NORM[:cfg.input_dim]
         self.datanorm = nn.Parameter(torch.tensor(
-            DEFAULT_NORM[:cfg.input_dim], dtype=torch.float32, device=d))
+            tuple(norm), dtype=torch.float32, device=d))
         self.inputnet = MLP((cfg.input_dim, H // 2, H, H), g, d)
         self.output = MLP((H, H, H // 2, cfg.output_dim), g, d)
+        if met_bias > 0 and cfg.head == "polar":
+            # softplus⁻¹(m) = m + log1p(−exp(−m)), in f32 as the JAX package
+            # takes it; the cartesian head regresses a zero-mean vector
+            m = met_bias / cfg.output_scale
+            inv = m + float(torch.log1p(-torch.exp(-torch.tensor(m))))
+            with torch.no_grad():
+                self.output.layers[-1].b[0] = inv
         self.convs = nn.ModuleList(DRNConv(H, g, d)
                                    for _ in range(cfg.pool_rounds))
 
@@ -92,27 +113,17 @@ class DRN(nn.Module):
             yield ("bn_state", "convs", r, 1), conv.bn.running_var
             yield ("bn_state", "convs", r, 2), conv.bn.num_batches_tracked
 
-    @torch.no_grad()
-    def params_from_jax(self, params: Dict, bn_state: Dict) -> "DRN":
-        """Copy JAX parameters and BatchNorm state (numpy leaves, ``convs``
-        a list, each state a ``BatchNormState``) into this module."""
-        trees = {"params": params, "bn_state": bn_state}
-        for path, t in self.jax_layout():
-            v = _leaf(trees, path)
-            if tuple(v.shape) != tuple(t.shape):
-                raise ValueError(f"{path}: shape {v.shape} != {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(v).to(t.dtype))
-        return self
-
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 diag: Optional[dict] = None) -> torch.Tensor:
         return drn_apply(self, x, mask, diag)
 
 
 def _drn_edgeconv(conv: DRNConv, x: torch.Tensor, nbr: Neighborhood,
-                  aggr: str) -> torch.Tensor:
-    """The round's EdgeConv in its fused form (evaluation: the running
-    BatchNorm statistics); shapes the fused conv does not take raise."""
+                  aggr: str, train: bool) -> torch.Tensor:
+    """The round's EdgeConv in its fused form; shapes the fused conv does
+    not take raise.  ``train`` normalizes with the batch statistics of the
+    valid edge messages and updates the running buffers as the JAX package
+    does (models/drn.py:193-204), n being the number of valid edges."""
     layers = conv.mlp.layers
     H, K = x.shape[-1], nbr.idx.shape[-1]
     F1, H2 = layers[0].w.shape[-1], layers[-1].w.shape[-1]
@@ -121,8 +132,12 @@ def _drn_edgeconv(conv: DRNConv, x: torch.Tensor, nbr: Neighborhood,
             f"DRN EdgeConv with {len(layers)} layers at K={K}, H={H}, "
             f"F1={F1}, H2={H2}: not ported yet (XLA form)")
     bn = conv.bn
-    out, _, _ = edge_mlp_conv(x, nbr, conv.mlp.params(), bn.gamma, bn.beta,
-                              bn.running_mean, bn.running_var, False, aggr)
+    out, mean, var = edge_mlp_conv(x, nbr, conv.mlp.params(), bn.gamma,
+                                   bn.beta, bn.running_mean, bn.running_var,
+                                   train, aggr)
+    if train:
+        bn.update_running(mean, var,
+                          torch.clamp(nbr.mask.sum(), min=1).to(var.dtype))
     return out
 
 
@@ -162,16 +177,15 @@ def drn_apply(model: DRN, x: torch.Tensor, mask: torch.Tensor,
     """Forward → per-event outputs ``[B, output_dim]`` (reference
     model/dynamic_reduction_network.py:82-103).  ``diag``, if given,
     collects ``compact_dropped`` per compaction and, under ``rounds``, each
-    round's graph decisions ``(mask, nbr, cluster, partner)``."""
-    if model.training:
-        raise NotImplementedError("DRN training: not ported yet; call "
-                                  "model.eval()")
+    round's graph decisions ``(mask, nbr, cluster, partner)``.  The model's
+    mode picks the BatchNorm statistics (``model.train()``: the batch's,
+    and the running buffers update)."""
     cfg = model.cfg
     h = model.inputnet(model.datanorm * x, final_act=True)
     for r, conv in enumerate(model.convs):
         g = build_dyn_graph(h, mask, k=cfg.k, cap=cfg.und_cap,
                             want_mirror=cfg.mirror_gather)
-        h = _drn_edgeconv(conv, h, g.nbr, cfg.aggr)
+        h = _drn_edgeconv(conv, h, g.nbr, cfg.aggr, model.training)
         cluster, partner = cut_matching(g, h, mask)
         if diag is not None:
             diag.setdefault("rounds", []).append((mask, g.nbr, cluster,

@@ -11,21 +11,22 @@
 Parameters keep the JAX package's names and ``[in, out]`` layout, so
 ``params_from_jax`` carries a JAX checkpoint across unchanged and
 ``params_to_jax`` writes the same trees back; ``optimizer_state_from_jax``
-and ``optimizer_state_to_jax`` do the same for the AdamW moments.
+and ``optimizer_state_to_jax`` do the same for the AdamW moments (all from
+models/layout.py, driven by ``jax_layout``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Iterator, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from deepmetv2_tpu_torch.config import ModelConfig
 from deepmetv2_tpu_torch.data.batching import EventBatch
-from deepmetv2_tpu_torch.nn.core import (MLP, BatchNormState, Embedding,
-                                         Linear, MaskedBatchNorm, elu)
+from deepmetv2_tpu_torch.models.layout import JaxLayout
+from deepmetv2_tpu_torch.nn.core import (MLP, Embedding, Linear,
+                                         MaskedBatchNorm, elu)
 from deepmetv2_tpu_torch.ops.edgeconv import edgeconv
 
 
@@ -45,7 +46,7 @@ class EdgeConvBlock(nn.Module):
         self.bn = MaskedBatchNorm(H, device)
 
 
-class GraphMET(nn.Module):
+class GraphMET(JaxLayout):
     """The JAX package's ``graph_met_init`` is the constructor (torch's
     default initialization from ``generator``) and its ``graph_met_apply``
     is ``forward``: raw (pre-sigmoid) scores ``[B, N]``, garbage at padded
@@ -113,127 +114,6 @@ class GraphMET(nn.Module):
             yield ("bn_state",) + path + (0,), bn.running_mean
             yield ("bn_state",) + path + (1,), bn.running_var
             yield ("bn_state",) + path + (2,), bn.num_batches_tracked
-
-    @torch.no_grad()
-    def params_from_jax(self, params: Dict, bn_state: Dict) -> "GraphMET":
-        """Copy JAX parameters and BatchNorm state (numpy arrays, as a JAX
-        checkpoint or ``graph_met_init`` holds them) into this module."""
-        trees = {"params": params, "bn_state": bn_state}
-        for path, t in self.jax_layout():
-            v = _leaf(trees, path)
-            if tuple(v.shape) != tuple(t.shape):
-                raise ValueError(f"{path}: shape {v.shape} != {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(v).to(t.dtype))
-        return self
-
-    @torch.no_grad()
-    def params_to_jax(self) -> Tuple[Dict, Dict]:
-        """``(params, bn_state)`` as numpy trees in the JAX package's
-        layout, the inverse of ``params_from_jax`` (BatchNorm counts as
-        int32, as the JAX package keeps them)."""
-        items = []
-        for path, t in self.jax_layout():
-            v = t.detach().cpu().numpy().copy()
-            items.append((path, v.astype(np.int32) if path[0] == "bn_state"
-                          and path[-1] == 2 else v))
-        trees = _nest(items)
-        bn = trees["bn_state"]
-        bn["bn_all"] = BatchNormState(*bn["bn_all"])
-        bn["convs"] = [BatchNormState(*s) for s in bn["convs"]]
-        return trees["params"], bn
-
-    def _param_paths(self):
-        return [(path[1:], t) for path, t in self.jax_layout()
-                if path[0] == "params"]
-
-    @torch.no_grad()
-    def optimizer_state_from_jax(self, opt_state,
-                                 optimizer: torch.optim.Optimizer) -> None:
-        """Load an AdamW state into ``optimizer`` (a ``torch.optim.AdamW``
-        over this model's parameters): optax's ``ScaleByAdamState``
-        ``mu``/``nu``/``count`` become ``exp_avg``/``exp_avg_sq``/``step``
-        and the injected learning rate the groups' lr.  Takes the JAX
-        package's state or the port's own (``optimizer_state_to_jax``)."""
-        count, lr, mu, nu = _adam_state(opt_state)
-        sd = optimizer.state_dict()
-        index = {id(p): i for i, p in enumerate(
-            p for g in optimizer.param_groups for p in g["params"])}
-        state = {}
-        for path, t in self._param_paths():
-            state[index[id(t)]] = {
-                "step": torch.tensor(float(count), dtype=torch.float32),
-                "exp_avg": torch.from_numpy(_leaf(mu, path)).to(t),
-                "exp_avg_sq": torch.from_numpy(_leaf(nu, path)).to(t),
-            }
-        if len(state) != len(index):
-            raise ValueError(f"optimizer holds {len(index)} tensors, the "
-                             f"model's layout {len(state)}")
-        sd["state"] = state
-        for g in sd["param_groups"]:
-            g["lr"] = lr
-        optimizer.load_state_dict(sd)
-
-    @torch.no_grad()
-    def optimizer_state_to_jax(self, optimizer: torch.optim.Optimizer) -> Dict:
-        """The port's own optimizer state, the inverse of
-        ``optimizer_state_from_jax``: ``{"optimizer": "AdamW", "count",
-        "lr", "mu", "nu"}`` with the moments as numpy trees in the JAX
-        layout of ``params`` (zeros before the first step)."""
-        def moment(t, key):
-            st = optimizer.state.get(t, {})
-            v = st.get(key, torch.zeros_like(t))
-            return v.detach().cpu().numpy().copy()
-
-        paths = self._param_paths()
-        st = optimizer.state.get(paths[0][1], {})
-        count = int(st["step"]) if "step" in st else 0
-        return {"optimizer": "AdamW", "count": count,
-                "lr": float(optimizer.param_groups[0]["lr"]),
-                "mu": _nest([(p, moment(t, "exp_avg")) for p, t in paths]),
-                "nu": _nest([(p, moment(t, "exp_avg_sq")) for p, t in paths])}
-
-
-def _leaf(tree, path):
-    for k in path:
-        tree = tree[k]
-    return np.array(tree)
-
-
-def _nest(items) -> Dict:
-    """``[(path, value)]`` → nested containers: dicts, with every dict whose
-    keys are 0..n-1 turned into a list (the JAX pytree layout)."""
-    root: Dict = {}
-    for path, v in items:
-        node = root
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = v
-
-    def fix(node):
-        if not isinstance(node, dict):
-            return node
-        out = {k: fix(v) for k, v in node.items()}
-        if out and all(isinstance(k, int) for k in out):
-            return [out[i] for i in range(len(out))]
-        return out
-
-    return fix(root)
-
-
-def _adam_state(opt_state):
-    """``(count, lr, mu, nu)`` from either package's optimizer state: the
-    port's own dict, or optax's ``inject_hyperparams(adamw)`` state, alone
-    or as the element of a ``chain`` after ``clip_by_global_norm``."""
-    if isinstance(opt_state, dict):
-        return (int(opt_state["count"]), float(opt_state["lr"]),
-                opt_state["mu"], opt_state["nu"])
-    elems = (opt_state,) if hasattr(opt_state, "hyperparams") else opt_state
-    for el in elems:
-        if hasattr(el, "hyperparams"):
-            adam = el.inner_state[0]          # ScaleByAdamState
-            return (int(adam.count), float(el.hyperparams["learning_rate"]),
-                    adam.mu, adam.nu)
-    raise ValueError(f"no AdamW state in {type(opt_state).__name__}")
 
 
 def net_apply(model: GraphMET, batch: EventBatch, graph) -> torch.Tensor:

@@ -52,6 +52,21 @@ class BatchNormState(NamedTuple):
     count: torch.Tensor  # num_batches_tracked
 
 
+def running_update(state: BatchNormState, mean: torch.Tensor,
+                   var: torch.Tensor, n: torch.Tensor,
+                   momentum: float = 0.1) -> BatchNormState:
+    """The running buffers after one training batch whose biased
+    statistics ``mean``, ``var`` were taken over ``n`` rows: momentum
+    ``momentum``, the variance made unbiased (``var·n / max(n − 1, 1)``),
+    the count plus one."""
+    unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+    return BatchNormState(
+        (1 - momentum) * state.mean + momentum * mean,
+        (1 - momentum) * state.var + momentum * unbiased,
+        state.count + 1,
+    )
+
+
 def batchnorm_apply(
     params: Params,
     state: BatchNormState,
@@ -72,12 +87,7 @@ def batchnorm_apply(
         mean = torch.where(m, x, zero).sum(dim=(0, 1)) / n
         diff = torch.where(m, x - mean, zero)
         var = (diff * diff).sum(dim=(0, 1)) / n                   # biased
-        unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
-        new_state = BatchNormState(
-            (1 - momentum) * state.mean + momentum * mean,
-            (1 - momentum) * state.var + momentum * unbiased,
-            state.count + 1,
-        )
+        new_state = running_update(state, mean, var, n, momentum)
     else:
         mean, var = state.mean, state.var
         new_state = state
@@ -161,14 +171,26 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), device=device, dtype=torch.int64))
 
+    def state(self) -> BatchNormState:
+        return BatchNormState(self.running_mean, self.running_var,
+                              self.num_batches_tracked)
+
+    def _store(self, new: BatchNormState) -> None:
+        with torch.no_grad():
+            self.running_mean.copy_(new.mean)
+            self.running_var.copy_(new.var)
+            self.num_batches_tracked.copy_(new.count)
+
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor,
+                       n: torch.Tensor, momentum: float = 0.1) -> None:
+        """Fold a training batch's biased statistics over ``n`` rows into
+        the buffers (``running_update``)."""
+        with torch.no_grad():
+            self._store(running_update(self.state(), mean, var, n, momentum))
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        state = BatchNormState(self.running_mean, self.running_var,
-                               self.num_batches_tracked)
         out, new = batchnorm_apply({"gamma": self.gamma, "beta": self.beta},
-                                   state, x, mask, self.training)
+                                   self.state(), x, mask, self.training)
         if self.training:
-            with torch.no_grad():
-                self.running_mean.copy_(new.mean)
-                self.running_var.copy_(new.var)
-                self.num_batches_tracked.copy_(new.count)
+            self._store(new)
         return out

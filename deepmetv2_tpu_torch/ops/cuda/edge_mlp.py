@@ -1,12 +1,12 @@
-"""The DRN's fused edge-MLP EdgeConv with its edge pass as a Hopper kernel
+"""The DRN's fused edge-MLP EdgeConv with its edge passes as Hopper kernels
 (``csrc/edge_mlp.cu``), the counterpart of the JAX package's
-``ops/pallas/edge_mlp.py:edge_mlp_conv`` (forward).
+``ops/pallas/edge_mlp.py:edge_mlp_conv``, forward and backward.
 
-``edge_mlp_fwd`` launches the kernel for a CUDA tensor and takes the plain
-version (ops/edge_mlp.py:edge_mlp_fwd_torch) for a CPU tensor; a CUDA
-tensor never reaches the plain version, and a failed build or launch
-raises.  The kernel's backward is not ported yet: on the card the pass
-refuses inputs that need a gradient.
+``edge_mlp_fwd`` and ``edge_mlp_bwd`` launch their kernels for a CUDA
+tensor and take the plain versions (ops/edge_mlp.py: ``edge_mlp_fwd_torch``,
+``edge_mlp_bwd_torch``) for a CPU tensor; a CUDA tensor never reaches a
+plain version, and a failed build or launch raises.  ``EdgeMLP`` is the
+``torch.autograd.Function`` that pairs them on both devices.
 """
 
 from __future__ import annotations
@@ -18,16 +18,48 @@ import torch
 
 from deepmetv2_tpu_torch.data.batching import Neighborhood
 from deepmetv2_tpu_torch.ops.cuda import build
-from deepmetv2_tpu_torch.ops.edge_mlp import (MAX_DIM, bn_combine,
-                                              edge_mlp_fwd_torch)
+from deepmetv2_tpu_torch.ops.edge_mlp import (MAX_DIM, EdgeMLPGrads,
+                                              bn_combine, edge_mlp_bwd_torch,
+                                              edge_mlp_fwd_torch,
+                                              reverse_slots)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_P] * 11 + [_I] * 7 + [_P]
+_BWD_ARGS = [_P] * 18 + [_I] * 7 + [_P]
+_DX_ARGS = [_P] * 4 + [_I] * 4 + [_P]
 
 
 def _num_blocks(B: int, N: int) -> int:
-    """Rows of the statistics partials the kernel writes."""
+    """Rows of the partial sums (statistics, weight gradients) the kernels
+    write, one per block."""
     return build.function("edge_mlp", "edge_mlp_num_blocks", [_I, _I])(B, N)
+
+
+def _check(name: str, aggr: str, args, nbr: Neighborhood, *node) -> None:
+    """Raise on what the kernels do not take: ``args`` = (a [B, N, F1], x
+    [B, N, H], w_diff [H, F1], w1 [F1, H2], b1 [H2]) f32, ``node`` further
+    [B, N, H2] f32 tensors, idx int32 and mask bool [B, N, K], all on x's
+    device, widths at most MAX_DIM."""
+    if aggr not in ("add", "mean", "max"):
+        raise ValueError(f"unknown aggr {aggr!r}")
+    a, x, w_diff, w1, b1 = args
+    B, N, H = x.shape
+    K = nbr.idx.shape[-1]
+    F1, H2 = w1.shape
+    shapes = [(a, (B, N, F1)), (w_diff, (H, F1)), (b1, (H2,)),
+              (nbr.idx, (B, N, K)), (nbr.mask, (B, N, K))]
+    shapes += [(t, (B, N, H2)) for t in node]
+    for t, want in shapes:
+        if tuple(t.shape) != want or t.device != x.device:
+            raise ValueError(f"{name}: {tuple(t.shape)} on {t.device}, want "
+                             f"{want} on {x.device}")
+    if any(t.dtype != torch.float32 for t in tuple(args) + tuple(node)):
+        raise TypeError(f"{name}: a, x and the weights must be float32")
+    if nbr.idx.dtype != torch.int32 or nbr.mask.dtype != torch.bool:
+        raise TypeError(f"{name}: idx must be int32 and mask bool")
+    if max(H, F1, H2) > MAX_DIM:
+        raise ValueError(f"{name}: H, F1, H2 = {H}, {F1}, {H2}; each must be "
+                         f"at most {MAX_DIM}")
 
 
 def edge_mlp_fwd(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
@@ -40,29 +72,11 @@ def edge_mlp_fwd(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
     [H2]``, all f32 but the int32 indices and bool mask."""
     if build.on_cpu("edge_mlp_fwd", x):
         return edge_mlp_fwd_torch(a, x, nbr, w_diff, w1, b1, aggr)
-    if aggr not in ("add", "mean", "max"):
-        raise ValueError(f"unknown aggr {aggr!r}")
     args = (a, x, w_diff, w1, b1)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        raise NotImplementedError(
-            "edge_mlp_fwd: the kernel's backward is not ported yet; call it "
-            "under torch.no_grad()")
+    _check("edge_mlp_fwd", aggr, args, nbr)
     B, N, H = x.shape
     K = nbr.idx.shape[-1]
     F1, H2 = w1.shape
-    shapes = [(a, (B, N, F1)), (w_diff, (H, F1)), (b1, (H2,)),
-              (nbr.idx, (B, N, K)), (nbr.mask, (B, N, K))]
-    for t, want in shapes:
-        if tuple(t.shape) != want or t.device != x.device:
-            raise ValueError(f"edge_mlp_fwd: {tuple(t.shape)} on {t.device},"
-                             f" want {want} on {x.device}")
-    if any(t.dtype != torch.float32 for t in args):
-        raise TypeError("edge_mlp_fwd: a, x and the weights must be float32")
-    if nbr.idx.dtype != torch.int32 or nbr.mask.dtype != torch.bool:
-        raise TypeError("edge_mlp_fwd: idx must be int32 and mask bool")
-    if max(H, F1, H2) > MAX_DIM:
-        raise ValueError(f"edge_mlp_fwd: H, F1, H2 = {H}, {F1}, {H2}; each "
-                         f"must be at most {MAX_DIM}")
     a, x, w_diff, w1, b1, idx, mask = (
         t.detach().contiguous() for t in args + (nbr.idx, nbr.mask))
     dev = x.device
@@ -84,6 +98,85 @@ def edge_mlp_fwd(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
 edge_mlp_fwd.launches = 0
 
 
+def edge_mlp_bwd(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
+                 w_diff: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                 aggr: str, agg0: torch.Tensor, agg1: Optional[torch.Tensor],
+                 g0: torch.Tensor, g1: Optional[torch.Tensor],
+                 gst: torch.Tensor) -> EdgeMLPGrads:
+    """Gradients of ``edge_mlp_fwd`` (see ops/edge_mlp.py:edge_mlp_bwd_torch)
+    from the forward's inputs and outputs (``agg0``, ``agg1``: the tie
+    references of 'max') and the cotangents ``g0``, ``g1``, ``gst``.  On the
+    card: the edge kernel, the block-ordered sum of its weight-gradient
+    partials, and the pass that sums the per-slot x_j gradients onto their
+    sources through the reverse index of ``reverse_slots``."""
+    if build.on_cpu("edge_mlp_bwd", x):
+        return edge_mlp_bwd_torch(a, x, nbr, w_diff, w1, b1, aggr, agg0, agg1,
+                                  g0, g1, gst)
+    args = (a, x, w_diff, w1, b1)
+    maxmode = aggr == "max"
+    node = (agg0, g0) + ((agg1, g1) if maxmode else ())
+    _check("edge_mlp_bwd", aggr, args, nbr, *node)
+    B, N, H = x.shape
+    K = nbr.idx.shape[-1]
+    F1, H2 = w1.shape
+    if tuple(gst.shape) != (2, H2) or gst.dtype != torch.float32:
+        raise ValueError(f"edge_mlp_bwd: gst {tuple(gst.shape)} "
+                         f"{gst.dtype}, want ({2}, {H2}) float32")
+    a, x, w_diff, w1, b1, idx, mask, agg0, g0, gst = (
+        t.detach().contiguous()
+        for t in args + (nbr.idx, nbr.mask, agg0, g0, gst))
+    if maxmode:
+        agg1, g1 = agg1.detach().contiguous(), g1.detach().contiguous()
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    da = torch.empty((B, N, F1), **f32)
+    dxj = torch.empty((B, N, K, H), **f32)
+    dx = torch.empty((B, N, H), **f32)
+    dw_diff = torch.empty((H, F1), **f32)
+    dw1 = torch.empty((F1, H2), **f32)
+    db1 = torch.empty((H2,), **f32)
+    partial = torch.empty((_num_blocks(B, N), H * F1 + F1 * H2 + H2), **f32)
+    build.launch(build.function("edge_mlp", "edge_mlp_bwd", _BWD_ARGS), dev,
+                 a.data_ptr(), x.data_ptr(), idx.data_ptr(), mask.data_ptr(),
+                 w_diff.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                 agg0.data_ptr(), agg1.data_ptr() if maxmode else None,
+                 g0.data_ptr(), g1.data_ptr() if maxmode else None,
+                 gst.data_ptr(), da.data_ptr(), dxj.data_ptr(),
+                 dw_diff.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+                 partial.data_ptr(), B, N, K, H, F1, H2, int(maxmode))
+    order, offsets = reverse_slots(nbr)
+    build.launch(build.function("edge_mlp", "edge_mlp_dx", _DX_ARGS), dev,
+                 dxj.data_ptr(), order.data_ptr(), offsets.data_ptr(),
+                 dx.data_ptr(), B, N, K, H)
+    edge_mlp_bwd.launches += 1
+    return EdgeMLPGrads(da, dx, dxj, dw_diff, dw1, db1)
+
+
+edge_mlp_bwd.launches = 0
+
+
+class EdgeMLP(torch.autograd.Function):
+    """``edge_mlp_fwd`` with ``edge_mlp_bwd`` as its backward, on either
+    device: ``(agg0, agg1 or None, stats)``.  x gets the per-slot gradients
+    summed onto their sources; its gradient through ``a`` (and that of the
+    layer's W_self and b0) is autograd's, outside this function."""
+
+    @staticmethod
+    def forward(ctx, a, x, w_diff, w1, b1, idx, mask, aggr: str):
+        nbr = Neighborhood(idx, mask)
+        agg0, agg1, stats = edge_mlp_fwd(a, x, nbr, w_diff, w1, b1, aggr)
+        ctx.save_for_backward(a, x, w_diff, w1, b1, idx, mask, agg0, agg1)
+        ctx.aggr = aggr
+        return agg0, agg1, stats
+
+    @staticmethod
+    def backward(ctx, g0, g1, gst):
+        a, x, w_diff, w1, b1, idx, mask, agg0, agg1 = ctx.saved_tensors
+        gr = edge_mlp_bwd(a, x, Neighborhood(idx, mask), w_diff, w1, b1,
+                          ctx.aggr, agg0, agg1, g0, g1, gst)
+        return gr.da, gr.dx, gr.dw_diff, gr.dw1, gr.db1, None, None, None
+
+
 def edge_mlp_conv(x: torch.Tensor, nbr: Neighborhood,
                   mlp: Dict[str, Dict[str, torch.Tensor]],
                   gamma: torch.Tensor, beta: torch.Tensor,
@@ -93,12 +186,14 @@ def edge_mlp_conv(x: torch.Tensor, nbr: Neighborhood,
     """Fused DRN EdgeConv: ``(out [B, N, H2], mean, var)`` with
     ``mlp = {'lin0': {w [2H, F1], b}, 'lin1': {w [F1, H2], b}}``; batch
     statistics (biased variance) in train mode, the running ones
-    otherwise (see ops/edge_mlp.py)."""
+    otherwise (see ops/edge_mlp.py).  Differentiable through
+    ``EdgeMLP``."""
     H = x.shape[-1]
     w0, b0 = mlp["lin0"]["w"], mlp["lin0"]["b"]
     w_self, w_diff = w0[:H], w0[H:]
     a = torch.matmul(x, w_self - w_diff) + b0
-    agg0, agg1, stats = edge_mlp_fwd(a, x, nbr, w_diff, mlp["lin1"]["w"],
-                                     mlp["lin1"]["b"], aggr)
+    agg0, agg1, stats = EdgeMLP.apply(a, x, w_diff, mlp["lin1"]["w"],
+                                      mlp["lin1"]["b"], nbr.idx, nbr.mask,
+                                      aggr)
     return bn_combine(agg0, agg1, stats, nbr.mask, gamma, beta, run_mean,
                       run_var, train, aggr, eps)

@@ -1,12 +1,16 @@
 """Windowed EdgeConv with the aggregation and its gradient as Hopper
 kernels (``csrc/window_max.cu``), the counterpart of the JAX package's
-``ops/pallas/edgeconv_window.py``.
+``ops/pallas/edgeconv_window.py``, and the double-buffered variant of the
+forward that ``scripts/window_revolver_probe.py`` measured on the TPU
+(``window_max_pipelined``; no path calls it but the probe module
+``deepmetv2_tpu_torch/probes/window_revolver.py``).
 
-``window_max`` and ``window_max_bwd`` launch their kernels for a CUDA
-tensor and take the plain versions (ops/window.py: ``window_max_torch``,
-``window_max_bwd_torch``) for a CPU tensor; a CUDA tensor never reaches a
-plain version, and a failed build or launch raises.  ``WindowMax`` is the
-``torch.autograd.Function`` that pairs them, with the TPU kernel's tie rule
+``window_max``, ``window_max_pipelined`` and ``window_max_bwd`` launch
+their kernels for a CUDA tensor and take the plain versions (ops/window.py:
+``window_max_torch``, ``window_max_bwd_torch``) for a CPU tensor; a CUDA
+tensor never reaches a plain version, and a failed build or launch
+raises.  ``WindowMax`` is the ``torch.autograd.Function`` that pairs the
+forward and the backward, with the TPU kernel's tie rule
 (every tied source gets the full gradient).  The GEMMs stay
 ``torch.matmul``, as the JAX package leaves them to XLA.
 """
@@ -30,6 +34,7 @@ MAX_H = 128     # the kernels keep ceil(H/32) <= 4 features per lane
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "window_max_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "window_max_fwd_pipelined": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "window_max_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
@@ -75,6 +80,27 @@ def window_max(c: torch.Tensor, pos: torch.Tensor, r2: float,
 
 
 window_max.launches = 0
+
+
+def window_max_pipelined(c: torch.Tensor, pos: torch.Tensor, r2: float,
+                         halo: int) -> torch.Tensor:
+    """``window_max`` by the kernel that stages its window chunks through a
+    two-stage cp.async double buffer (csrc/window_max.cu); the same
+    function, bit for bit."""
+    if build.on_cpu("window_max_pipelined", c):
+        return window_max_torch(c, pos, torch.ones(c.shape[:2], dtype=torch.bool),
+                                r2, halo)
+    _check("window_max_pipelined", c, pos)
+    B, N, H = c.shape
+    c, pos = c.detach().contiguous(), pos.detach().contiguous()
+    out = torch.empty_like(c)
+    _launch("window_max_fwd_pipelined", c, c.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), B, N, H, int(halo), float(r2))
+    window_max_pipelined.launches += 1
+    return out
+
+
+window_max_pipelined.launches = 0
 
 
 def window_max_bwd(c: torch.Tensor, pos: torch.Tensor, m: torch.Tensor,

@@ -11,7 +11,11 @@ above it on a relation recomputed tile by tile, and past
 
 Only the fused strategy is ported: shapes the JAX fused build does not
 take (N not a multiple of 128, cap above 128) raise rather than silently
-taking the composed path, whose graph differs at hubs (ROADMAP C).  The
+taking the composed path, whose graph differs at hubs (ROADMAP C).
+``want_mirror`` (``mirror_gather``) keeps only the listed edges whose
+reverse edge is listed too, which makes the list symmetric, and carries
+its mirror-slot table as the JAX package's graph does (the port's EdgeConv
+backward sums x's gradient through a reverse index on every list).  The
 ``[B, N, N]`` products outside the kernels are ``torch.matmul`` in full
 f32 (callers keep TF32 off).
 """
@@ -29,6 +33,7 @@ from deepmetv2_tpu_torch.ops.coarsen import (handshake_matching,
                                              normalized_cut_weights)
 from deepmetv2_tpu_torch.ops.cuda.knn_und import knn_und_graph
 from deepmetv2_tpu_torch.ops.knn_und import supported
+from deepmetv2_tpu_torch.ops.segment import mirror_slots_sorted
 
 # Up to this node count the extraction emits its relation rows and the
 # dense matching consumes them.
@@ -42,14 +47,17 @@ DENSE_W_MAX_ELEMS = 8 * 8192 * 8192
 class DynGraph:
     """One round's graph: the neighbour lists, each listed edge's d²
     ``[B, N, cap]``, the k-th-neighbour thresholds ``t [B, N]``, the
-    features it was built from ``h0`` and, up to ``DENSE_MATCH_MAX_N``,
-    the threshold relation ``rel [B, N, N]`` bool."""
+    features it was built from ``h0``, up to ``DENSE_MATCH_MAX_N`` the
+    threshold relation ``rel [B, N, N]`` bool, and with ``want_mirror``
+    the mirror-slot table ``mirror [B, N, cap]`` int32
+    (ops/segment.py:mirror_slots_sorted)."""
 
     nbr: Neighborhood
     d2v: torch.Tensor
     t: torch.Tensor
     h0: torch.Tensor
     rel: Optional[torch.Tensor] = None
+    mirror: Optional[torch.Tensor] = None
 
 
 def build_dyn_graph(h: torch.Tensor, mask: torch.Tensor, k: int = 16,
@@ -57,10 +65,10 @@ def build_dyn_graph(h: torch.Tensor, mask: torch.Tensor, k: int = 16,
                     want_mirror: bool = False) -> DynGraph:
     """The symmetrized kNN graph of ``h`` (``to_undirected(knn_graph(h,
     mask, k))``, capped at ``cap``, default 2k) by the fused build.  Never
-    differentiable."""
+    differentiable.  ``want_mirror`` intersects the slot mask with the
+    edges whose reverse is listed and adds the mirror table (JAX
+    dyn_graph.py:144-148)."""
     cap = 2 * k if cap is None else cap
-    if want_mirror:
-        raise NotImplementedError("mirror_gather: not ported yet")
     if not supported(h.shape[1], cap):
         raise NotImplementedError(
             f"dynamic graph at N={h.shape[1]}, cap={cap}: not ported yet "
@@ -72,6 +80,10 @@ def build_dyn_graph(h: torch.Tensor, mask: torch.Tensor, k: int = 16,
                                          want_rel=True)
     else:
         (nbr, d2v, t), rel = knn_und_graph(h, mask, k=k, cap=cap), None
+    if want_mirror:
+        mirror, found = mirror_slots_sorted(nbr)
+        return DynGraph(nbr=Neighborhood(idx=nbr.idx, mask=found), d2v=d2v,
+                        t=t, h0=h, rel=rel, mirror=mirror)
     return DynGraph(nbr=nbr, d2v=d2v, t=t, h0=h, rel=rel)
 
 

@@ -16,11 +16,19 @@ The kernel (``edge_mlp_fwd_torch`` here, csrc/edge_mlp.cu on the card)
 therefore emits only node-level reductions of the raw messages and the two
 statistics rows; ``bn_combine`` applies the affine around it in torch, as
 the JAX package does in XLA.
+
+The backward (``edge_mlp_bwd_torch``, the kernel ``edge_mlp_bwd``) is
+written out as the TPU kernel's ``_bwd_kernel`` computes it: it recomputes
+the messages, splits a max or min cotangent evenly among the slots that
+tie with the forward's result, folds in the statistics' cotangent, and
+returns the gradients of a, the per-slot x_j, W_diff, W1 and b1.  The
+forward gathers x_j itself, so the gather's adjoint, summing each slot's
+x_j gradient back onto its source row, is part of the backward here.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,6 +45,19 @@ def supported(k: int, h: int, f1: int, h2: int) -> bool:
     return k >= 1 and all(1 <= d <= MAX_DIM for d in (h, f1, h2))
 
 
+def messages_torch(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
+                   w_diff: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor):
+    """Every slot's message and what it is made of: ``(xj, z0, e0, z1, h)``
+    with ``xj [B, N, K, H]`` the gathered rows, ``z0 = a_i + x_j·W_diff``,
+    ``e0 = elu(z0)``, ``z1 = e0·W1 + b1`` and ``h = elu(z1) [B, N, K, H2]``
+    (masked slots included; the callers mask them)."""
+    xj = gather_neighbors(x, nbr)
+    z0 = torch.matmul(xj, w_diff) + a[:, :, None, :]
+    e0 = elu(z0)
+    z1 = torch.matmul(e0, w1) + b1
+    return xj, z0, e0, z1, elu(z1)
+
+
 def edge_mlp_fwd_torch(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
                        w_diff: torch.Tensor, w1: torch.Tensor,
                        b1: torch.Tensor, aggr: str
@@ -46,9 +67,7 @@ def edge_mlp_fwd_torch(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
     valid slots, reduced per node: ``(Σh, None, stats)`` for 'add' and
     'mean', ``(max h, min h, stats)`` for 'max' (±inf on rows with no valid
     slot), with ``stats [2, H2]`` = (Σh, Σh²) over all valid edges."""
-    xj = gather_neighbors(x, nbr)                              # [B,N,K,H]
-    z0 = torch.matmul(xj, w_diff) + a[:, :, None, :]
-    h = elu(torch.matmul(elu(z0), w1) + b1)                    # [B,N,K,H2]
+    h = messages_torch(a, x, nbr, w_diff, w1, b1)[-1]          # [B,N,K,H2]
     m = nbr.mask[..., None]
     hm = torch.where(m, h, torch.zeros_like(h))
     stats = torch.stack([hm.sum(dim=(0, 1, 2)), (hm * hm).sum(dim=(0, 1, 2))])
@@ -59,6 +78,93 @@ def edge_mlp_fwd_torch(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
     if aggr in ("add", "mean"):
         return hm.sum(dim=2), None, stats
     raise ValueError(f"unknown aggr {aggr!r}")
+
+
+def delu(z: torch.Tensor) -> torch.Tensor:
+    """elu'(z): 1 for z > 0, exp(z) otherwise."""
+    safe = torch.where(z > 0, torch.zeros_like(z), z)
+    return torch.where(z > 0, torch.ones_like(z), torch.exp(safe))
+
+
+class EdgeMLPGrads(NamedTuple):
+    """The backward's outputs: ``da [B, N, F1]``, ``dx [B, N, H]`` (the
+    per-slot gradients summed onto their source rows), ``dxj [B, N, K, H]``
+    (0 at masked slots), ``dw_diff [H, F1]``, ``dw1 [F1, H2]``, ``db1
+    [H2]``."""
+
+    da: torch.Tensor
+    dx: torch.Tensor
+    dxj: torch.Tensor
+    dw_diff: torch.Tensor
+    dw1: torch.Tensor
+    db1: torch.Tensor
+
+
+def reverse_slots(nbr: Neighborhood) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The transpose of a neighbour list, for summing per-slot gradients
+    onto their sources without atomics: ``(order [B, N·K] int32, offsets
+    [B, N + 1] int32)`` where ``order[b, offsets[b, j]:offsets[b, j + 1]]``
+    are the flat slots ``i·K + k`` whose valid entry points at j, in
+    ascending order (a stable sort of the valid slots by target)."""
+    B, N, K = nbr.idx.shape
+    key = torch.where(nbr.mask, nbr.idx.to(torch.int64),
+                      torch.full_like(nbr.idx, N, dtype=torch.int64))
+    key = key.reshape(B, N * K)
+    order = torch.argsort(key, dim=1, stable=True)
+    sorted_key = torch.gather(key, 1, order)
+    targets = torch.arange(N + 1, device=key.device, dtype=torch.int64)
+    offsets = torch.searchsorted(sorted_key,
+                                 targets[None, :].expand(B, N + 1).contiguous())
+    return order.to(torch.int32), offsets.to(torch.int32)
+
+
+def slot_sum_torch(dxj: torch.Tensor, nbr: Neighborhood) -> torch.Tensor:
+    """``dx[b, j] = Σ dxj[b, i, k]`` over the valid slots (i, k) with
+    ``idx[b, i, k] = j``: the adjoint of the neighbour gather."""
+    B, N, K, H = dxj.shape
+    rows = (nbr.idx.to(torch.int64)
+            + N * torch.arange(B, device=dxj.device)[:, None, None])
+    m = nbr.mask.reshape(-1)
+    dx = torch.zeros((B * N, H), dtype=dxj.dtype, device=dxj.device)
+    dx.index_add_(0, rows.reshape(-1)[m], dxj.reshape(-1, H)[m])
+    return dx.reshape(B, N, H)
+
+
+def edge_mlp_bwd_torch(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
+                       w_diff: torch.Tensor, w1: torch.Tensor,
+                       b1: torch.Tensor, aggr: str, agg0: torch.Tensor,
+                       agg1: Optional[torch.Tensor], g0: torch.Tensor,
+                       g1: Optional[torch.Tensor], gst: torch.Tensor
+                       ) -> EdgeMLPGrads:
+    """Gradients of ``edge_mlp_fwd_torch``'s outputs, given their
+    cotangents ``g0``, ``g1`` (max only) and ``gst [2, H2]``, written out as
+    the TPU kernel's backward (ops/pallas/edge_mlp.py:128-177).  For 'max'
+    the slots whose recomputed message equals the forward's ``agg0`` (or
+    ``agg1``) share its cotangent evenly; the statistics' cotangent reaches
+    every valid edge as ``gst[0] + 2·h·gst[1]``."""
+    xj, z0, e0, z1, h = messages_torch(a, x, nbr, w_diff, w1, b1)
+    m = nbr.mask[..., None]
+    zero = torch.zeros_like(h)
+    if aggr == "max":
+        tie0 = (h == agg0[:, :, None, :]) & m
+        tie1 = (h == agg1[:, :, None, :]) & m
+        c0 = torch.clamp(tie0.to(h.dtype).sum(dim=2), min=1.0)
+        c1 = torch.clamp(tie1.to(h.dtype).sum(dim=2), min=1.0)
+        dh = (torch.where(tie0, (g0 / c0)[:, :, None, :], zero)
+              + torch.where(tie1, (g1 / c1)[:, :, None, :], zero))
+    elif aggr in ("add", "mean"):
+        dh = g0[:, :, None, :].expand_as(h)
+    else:
+        raise ValueError(f"unknown aggr {aggr!r}")
+    dh = torch.where(m, dh + gst[0] + 2.0 * h * gst[1], zero)
+    dz1 = dh * delu(z1)
+    dw1 = torch.einsum("bnkf,bnko->fo", e0, dz1)
+    db1 = dz1.sum(dim=(0, 1, 2))
+    dz0 = torch.matmul(dz1, w1.t()) * delu(z0)
+    dw_diff = torch.einsum("bnkh,bnkf->hf", xj, dz0)
+    dxj = torch.matmul(dz0, w_diff.t())
+    return EdgeMLPGrads(dz0.sum(dim=2), slot_sum_torch(dxj, nbr),
+                        dxj, dw_diff, dw1, db1)
 
 
 def bn_combine(agg0: torch.Tensor, agg1: Optional[torch.Tensor],

@@ -22,11 +22,15 @@ import torch
 from deepmetv2_tpu_torch.config import Config
 from deepmetv2_tpu_torch.data.batching import to_device
 from deepmetv2_tpu_torch.data.loader import PaddedLoader, device_feed
+from deepmetv2_tpu_torch.models.drn import DRN
 from deepmetv2_tpu_torch.train import metrics as metrics_mod
 from deepmetv2_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                   save_checkpoint)
 from deepmetv2_tpu_torch.train.schedule import ReduceLROnPlateau
-from deepmetv2_tpu_torch.train.step import (make_bn_refresh_step,
+from deepmetv2_tpu_torch.train.step import (drn_objective,
+                                            graphmet_objective,
+                                            make_bn_refresh_step,
+                                            make_drn_eval_step,
                                             make_eval_step, make_train_step,
                                             set_learning_rate)
 from deepmetv2_tpu_torch.utils import artifacts
@@ -102,15 +106,21 @@ def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
         val_loader: PaddedLoader, ckpt_dir: str, device,
         restore_file: Optional[str] = None, epochs: Optional[int] = None,
         verbose: bool = True) -> None:
-    """The training loop (reference train.py:62-145) for GraphMET:
+    """The training loop (reference train.py:62-145) for either family:
     epochs of train steps, the plateau step on the mean train loss, then
-    validation, checkpoints and artifacts.  ``restore_file`` ('best' or
-    'last') resumes model, optimizer and scheduler from a checkpoint of
-    either package in ``ckpt_dir``, and the best loss from its
-    ``metrics_val_best.json``."""
+    validation, checkpoints and artifacts.  The model's class picks the
+    steps, as the JAX package's ``model`` argument does (loop.py:260-264):
+    GraphMET's or the DRN's (``models.drn.DRN``).  ``restore_file``
+    ('best' or 'last') resumes model, optimizer and scheduler from a
+    checkpoint of either package in ``ckpt_dir``, and the best loss from
+    its ``metrics_val_best.json``."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    train_step = make_train_step(cfg)
-    eval_step = make_eval_step(cfg)
+    if isinstance(model, DRN):
+        objective, eval_step = drn_objective(cfg), make_drn_eval_step(cfg)
+    else:
+        objective, eval_step = graphmet_objective(cfg), make_eval_step(cfg)
+    train_step = make_train_step(cfg, objective)
+    refresh_step = make_bn_refresh_step(objective)
     scheduler = ReduceLROnPlateau(
         lr=cfg.optim.lr,
         factor=cfg.optim.plateau_factor,
@@ -145,7 +155,6 @@ def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
         loss_log.flush()
 
     n_epochs = epochs if epochs is not None else cfg.train.epochs
-    refresh_step = None
     t_fit = time.perf_counter()
     for epoch in range(first_epoch + 1, n_epochs + 1):
         if verbose:
@@ -159,7 +168,6 @@ def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
         if cfg.train.bn_refresh_batches > 0:
             # precise-BN: re-estimate the running statistics under the
             # CURRENT parameters before validating
-            refresh_step = refresh_step or make_bn_refresh_step(cfg)
             for i, rb in enumerate(train_loader):
                 if i >= cfg.train.bn_refresh_batches:
                     break

@@ -1,6 +1,6 @@
 """Per-batch steps (the JAX package's ``train/step.py``): the optimizer,
-graph building, the train step, the BatchNorm refresh step and the
-evaluation steps of GraphMET and of the DRN.
+graph building, and the train, BatchNorm refresh and evaluation steps of
+GraphMET and of the DRN.
 
 Where the JAX package carries a ``TrainState`` pytree through jitted steps,
 the port keeps the model (parameters and BatchNorm buffers) and a
@@ -10,13 +10,14 @@ loss as a device tensor without a host sync.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Tuple
+from typing import Callable, Iterable, Optional, Tuple
 
 import torch
 
 from deepmetv2_tpu_torch.config import Config
 from deepmetv2_tpu_torch.data.batching import EventBatch
 from deepmetv2_tpu_torch.data.sorting import sort_by_eta
+from deepmetv2_tpu_torch.models.drn import drn_net_apply
 from deepmetv2_tpu_torch.models.graph_met import GraphMET, net_apply
 from deepmetv2_tpu_torch.ops.window import WindowGraph
 from deepmetv2_tpu_torch.train.loss import (drn_loss_fn, drn_met_vector,
@@ -24,11 +25,12 @@ from deepmetv2_tpu_torch.train.loss import (drn_loss_fn, drn_met_vector,
 from deepmetv2_tpu_torch.train.metrics import _neg_weighted_met
 
 
-def make_optimizer(cfg: Config, model: GraphMET) -> torch.optim.AdamW:
+def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.AdamW:
     """AdamW as the reference configures it (train.py:75: lr 1e-3; torch's
     defaults betas (0.9, 0.999), eps 1e-8, weight decay 0.01), over every
-    parameter, as optax's ``adamw`` in the JAX package.  The optional
-    global-norm clip is ``clip_by_global_norm`` in the train step."""
+    parameter of either model family (the DRN's ``datanorm`` included), as
+    optax's ``adamw`` in the JAX package.  The optional global-norm clip is
+    ``clip_by_global_norm`` in the train steps."""
     o = cfg.optim
     return torch.optim.AdamW(model.parameters(), lr=o.lr,
                              betas=tuple(o.betas), eps=o.eps,
@@ -79,19 +81,19 @@ def build_graph(batch: EventBatch, cfg: Config
     return batch, window_graph(batch, cfg)
 
 
-def make_train_step(cfg: Config) -> Callable:
-    """``(model, optimizer, batch) -> loss``: sort unless presorted, build
-    the graph, forward in training mode (batch statistics; the BatchNorm
-    buffers update), loss, backward, optional clip, AdamW step.  The loss
-    is the one before the update, a detached device scalar."""
+def _step(cfg: Config, objective: Callable) -> Callable:
+    """``(model, optimizer, batch) -> loss`` around ``objective(model,
+    batch) -> loss``: forward in training mode (batch statistics; the
+    BatchNorm buffers update), backward, optional global-norm clip, AdamW
+    step.  The loss is the one before the update, a detached device
+    scalar."""
     clip = cfg.optim.grad_clip_norm
 
-    def train_step(model: GraphMET, optimizer: torch.optim.Optimizer,
+    def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                    batch: EventBatch) -> torch.Tensor:
-        batch, graph = build_graph(batch, cfg)
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(net_apply(model, batch, graph), batch)
+        loss = objective(model, batch)
         loss.backward()
         if clip is not None:
             clip_by_global_norm(model.parameters(), clip)
@@ -101,16 +103,49 @@ def make_train_step(cfg: Config) -> Callable:
     return train_step
 
 
-def make_bn_refresh_step(cfg: Config) -> Callable:
-    """One "precise-BN" pass ``(model, batch) -> None``: a forward with
-    batch statistics that updates only the BatchNorm running buffers
-    (used by ``fit`` when ``cfg.train.bn_refresh_batches > 0``)."""
+def graphmet_objective(cfg: Config) -> Callable:
+    """GraphMET's ``(model, batch) -> loss``: sort unless presorted, build
+    the graph, ``loss_fn`` on the weights."""
 
-    @torch.no_grad()
-    def refresh(model: GraphMET, batch: EventBatch) -> None:
+    def objective(model: GraphMET, batch: EventBatch) -> torch.Tensor:
         batch, graph = build_graph(batch, cfg)
+        return loss_fn(net_apply(model, batch, graph), batch)
+
+    return objective
+
+
+def drn_objective(cfg: Config) -> Callable:
+    """The DRN's ``(model, batch) -> loss`` (JAX step.py:198-227): no
+    radius graph, the model builds its kNN graphs per round;
+    ``drn_loss_fn`` under ``cfg.drn.head``."""
+
+    def objective(model, batch: EventBatch) -> torch.Tensor:
+        return drn_loss_fn(drn_net_apply(model, batch), batch, cfg.drn.head)
+
+    return objective
+
+
+def make_train_step(cfg: Config, objective: Optional[Callable] = None
+                    ) -> Callable:
+    """The train step of ``_step`` on ``objective`` (default GraphMET's)."""
+    return _step(cfg, objective or graphmet_objective(cfg))
+
+
+def make_drn_train_step(cfg: Config) -> Callable:
+    """The DRN's train step: ``make_train_step`` on ``drn_objective``."""
+    return make_train_step(cfg, drn_objective(cfg))
+
+
+def make_bn_refresh_step(objective: Callable) -> Callable:
+    """One "precise-BN" pass ``(model, batch) -> None`` of the family
+    whose ``objective`` it is given: the objective's forward with batch
+    statistics under ``torch.no_grad()``, which updates only the BatchNorm
+    running buffers (used by ``fit`` when ``cfg.train.bn_refresh_batches >
+    0``)."""
+    @torch.no_grad()
+    def refresh(model, batch: EventBatch) -> None:
         model.train()
-        net_apply(model, batch, graph)
+        objective(model, batch)
 
     return refresh
 
@@ -154,8 +189,6 @@ def make_drn_eval_step(cfg: Config) -> Callable:
     None)`` under ``torch.no_grad()`` with the model in eval mode: the
     cartesian MET estimate, ``drn_loss_fn`` and no per-candidate weights,
     in the slots of GraphMET's step."""
-    from deepmetv2_tpu_torch.models.drn import drn_net_apply
-
     @torch.no_grad()
     def eval_step(model, batch: EventBatch):
         model.eval()

@@ -235,17 +235,6 @@ def test_drn_polar_head():
                                rtol=1e-6)
 
 
-def test_drn_training_is_not_ported():
-    import torch
-
-    from deepmetv2_tpu_torch.config import DRNConfig
-    from deepmetv2_tpu_torch.models.drn import DRN
-
-    model = DRN(DRNConfig()).train()
-    with pytest.raises(NotImplementedError, match="training"):
-        model(torch.zeros(1, 128, 11), torch.ones(1, 128, dtype=torch.bool))
-
-
 def _ckpt_copy(d):
     os.makedirs(d)
     for f in ("config.json", "best.ckpt"):

@@ -148,3 +148,164 @@ def test_supported_shapes():
     assert te.supported(1, 128, 128, 128)
     assert not te.supported(0, 64, 96, 64)            # no slot
     assert not te.supported(32, 64, 256, 64)          # wider than the kernel
+
+
+# ------------------------------------------------------------ the backward
+
+
+def _grads(args, train, aggr, nbr_t=None):
+    """Gradients of x, the MLP's four tensors, gamma and beta of
+    ``Σ out·G + Σ mean·Gm + Σ var·Gv`` (random cotangents; the statistics
+    terms reach the kernel's stats cotangent in train mode) through JAX's
+    ``edge_mlp_conv`` VJP (Pallas in interpret mode, the gather's adjoint
+    by XLA) and through the port's ``edge_mlp_conv`` (``EdgeMLP`` with the
+    plain backward), as two lists of numpy arrays."""
+    import jax
+
+    x, idx, mask, mlp, gamma, beta, mean, var = args
+    B, N, H = x.shape
+    rng = np.random.default_rng(7)
+    G = rng.normal(size=(B, N, H)).astype(np.float32)
+    Gm, Gv = rng.normal(size=(2, H)).astype(np.float32)
+    from deepmetv2_tpu.data.batching import Neighborhood as JNbr
+    from deepmetv2_tpu.ops.segment import gather_neighbors as j_gather
+
+    jn = JNbr(jnp.asarray(idx), jnp.asarray(mask))
+
+    def jloss(xx, m, g, b):
+        out, mu, v = j_conv(xx, j_gather(xx, jn), jn.mask, m, g, b,
+                            jnp.asarray(mean), jnp.asarray(var), train, aggr,
+                            interpret=True)
+        return (jnp.sum(out * G) + jnp.sum(mu * Gm) * train
+                + jnp.sum(v * Gv) * train)
+
+    jmlp = {k: {n: jnp.asarray(v) for n, v in d.items()}
+            for k, d in mlp.items()}
+    jg = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        jnp.asarray(x), jmlp, jnp.asarray(gamma), jnp.asarray(beta))
+    want = [jg[0]] + [jg[1][k][n] for k in ("lin0", "lin1")
+                      for n in ("w", "b")] + [jg[2], jg[3]]
+
+    nbr = nbr_t or Neighborhood(torch.as_tensor(idx), torch.as_tensor(mask))
+    leaves = [torch.as_tensor(v).requires_grad_(True)
+              for v in [x] + [mlp[k][n] for k in ("lin0", "lin1")
+                              for n in ("w", "b")] + [gamma, beta]]
+    tx, w0, b0, w1, b1, tg, tb = leaves
+    out, mu, v = t_conv(tx, nbr, {"lin0": {"w": w0, "b": b0},
+                                  "lin1": {"w": w1, "b": b1}},
+                        tg, tb, torch.as_tensor(mean), torch.as_tensor(var),
+                        train, aggr)
+    loss = ((out * torch.as_tensor(G)).sum()
+            + (mu * torch.as_tensor(Gm)).sum() * train
+            + (v * torch.as_tensor(Gv)).sum() * train)
+    loss.backward()
+    return [np.asarray(w) for w in want], [t.grad.numpy() for t in leaves]
+
+
+NAMES = ("x", "W0", "b0", "W1", "b1", "gamma", "beta")
+# Gradients: rtol 1e-4 plus 2e-5 of the largest |gradient| of the tensor.
+# In train mode the statistics' cotangent reaches every edge as
+# gst0 + 2h·gst1, and the biases' gradients sum those terms over all edges
+# with cancellation to about 1e-3 of their size, so the two packages'
+# summation orders show there at about 1e-5 of the result (measured up to
+# 1.3e-5 for b1); elsewhere they agree within 1e-6.
+GRAD_RTOL, GRAD_ATOL = 1e-4, 2e-5
+
+
+def _close_grads(want, got):
+    for name, w, g in zip(NAMES, want, got):
+        np.testing.assert_allclose(g, w, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL * float(np.abs(w).max()),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("aggr", ["add", "mean", "max"])
+@pytest.mark.parametrize("train", [False, True])
+def test_edge_mlp_grads_match_jax(aggr, train):
+    """Random lists (duplicate targets in a row, an empty row per event,
+    a target listed by many rows), eval and train BatchNorm."""
+    _close_grads(*_grads(_setup(seed=5), train, aggr))
+
+
+@pytest.mark.parametrize("aggr", ["add", "max"])
+def test_edge_mlp_grads_ties_match_jax(aggr):
+    """Lattice features: many slots of a row carry the same message, so
+    the max and min tie and their cotangent is split evenly."""
+    x, idx, mask, mlp, gamma, beta, mean, var = _setup(B=2, N=32, K=12,
+                                                       H=8, seed=6)
+    rng = np.random.default_rng(6)
+    x = rng.integers(-1, 2, size=x.shape).astype(np.float32)
+    x[:, ::2] = x[:, :1]                 # half the rows are one row
+    args = (x, idx, mask, mlp, gamma, beta, mean, var)
+    # rows whose valid slots reach two copies of the shared row: their
+    # messages are equal, so the max and min tie there
+    even = (idx % 2 == 0) & mask
+    assert int((even.sum(-1) >= 2).sum()) > 10
+    _close_grads(*_grads(args, True, aggr))
+
+
+def test_edge_mlp_grads_knn_hub_match_jax():
+    """A fused kNN list with a hub past the cap, so the list is not
+    symmetric: x's gradient needs the list's real transpose."""
+    from deepmetv2_tpu_torch.ops.cuda.knn_und import knn_und_graph
+
+    x, _, _, mlp, gamma, beta, mean, var = _setup(B=2, N=128, K=8, H=8,
+                                                  seed=8)
+    x[:, :60] *= 0.05                    # a dense core around row 0
+    x[:, 0] = 0.0
+    nbr, _, _ = knn_und_graph(torch.as_tensor(x),
+                               torch.ones(2, 128, dtype=torch.bool),
+                               k=4, cap=8)
+    idx, mask = nbr.idx.numpy(), nbr.mask.numpy()
+    back = {(b, int(j), i) for b in range(2) for i in range(128)
+            for j in idx[b, i][mask[b, i]]}
+    one_sided = sum((b, i, int(j)) not in back for b in range(2)
+                    for i in range(128) for j in idx[b, i][mask[b, i]])
+    assert one_sided > 0
+    args = (x, idx, mask, mlp, gamma, beta, mean, var)
+    for aggr in ("add", "max"):
+        _close_grads(*_grads(args, True, aggr, nbr))
+
+
+def test_slot_sum_and_mirror():
+    """The gather's adjoint through the reverse index (each target's slots
+    in ascending order) against a loop, and on a symmetric list against
+    the gather through its mirror table (JAX's _gather_mirror_bwd)."""
+    from deepmetv2_tpu_torch.ops.segment import (batched_take,
+                                                 mirror_slots_sorted)
+
+    rng = np.random.default_rng(9)
+    B, N, K, H = 2, 24, 6, 5
+    idx = torch.as_tensor(rng.integers(0, N, (B, N, K)), dtype=torch.int32)
+    mask = torch.as_tensor(rng.random((B, N, K)) < 0.6)
+    dxj = torch.as_tensor(rng.normal(size=(B, N, K, H)), dtype=torch.float32)
+    want = torch.zeros(B, N, H)
+    for b in range(B):
+        for i in range(N):
+            for k in range(K):
+                if mask[b, i, k]:
+                    want[b, idx[b, i, k]] += dxj[b, i, k]
+    nbr = Neighborhood(idx, mask)
+    np.testing.assert_allclose(te.slot_sum_torch(dxj, nbr).numpy(),
+                               want.numpy(), rtol=1e-6, atol=1e-6)
+    order, off = te.reverse_slots(nbr)
+    for b in range(B):
+        for j in range(N):
+            slots = order[b, off[b, j]:off[b, j + 1]].tolist()
+            assert slots == sorted(slots)
+            assert all(int(idx[b, s // K, s % K]) == j
+                       and bool(mask[b, s // K, s % K]) for s in slots)
+    assert int(off[0, -1]) == int(mask[0].sum())
+    # a symmetric list: each row's sum is the gather of its own slots'
+    # mirror rows
+    sym_idx = torch.zeros(B, N, 2, dtype=torch.int32)
+    sym_idx[:, :, 0] = (torch.arange(N) + 1) % N
+    sym_idx[:, :, 1] = (torch.arange(N) - 1) % N
+    sym = Neighborhood(sym_idx, torch.ones(B, N, 2, dtype=torch.bool))
+    mirror, found = mirror_slots_sorted(sym)
+    assert bool(found.all())
+    d2 = dxj[:, :, :2].contiguous()
+    flat = sym_idx.to(torch.int64) * 2 + mirror.to(torch.int64)
+    gathered = batched_take(d2.reshape(B, N * 2, H), flat).sum(dim=2)
+    np.testing.assert_allclose(te.slot_sum_torch(d2, sym).numpy(),
+                               gathered.numpy(), rtol=1e-6, atol=1e-6)

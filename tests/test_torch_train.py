@@ -180,7 +180,8 @@ def test_bn_refresh_matches_jax(small):
     new_bn = j_refresh(jcfg)(params, bn_state, batches[0])
     model = GraphMET(tcfg.model).params_from_jax(params, bn_state)
     before = [t.detach().clone() for _, t in model.jax_layout()]
-    tstep.make_bn_refresh_step(tcfg)(model, to_device(batches[0], "cpu"))
+    tstep.make_bn_refresh_step(tstep.graphmet_objective(tcfg))(
+        model, to_device(batches[0], "cpu"))
     want = GraphMET(tcfg.model).params_from_jax(params, new_bn)
     for (path, got), (_, ref), old in zip(model.jax_layout(),
                                           want.jax_layout(), before):
@@ -244,9 +245,11 @@ def test_u_perp_par_loss_matches_jax(small):
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
-@pytest.mark.parametrize("flags", [["--model", "drn"], ["--mesh", "2"],
-                                   ["--ring_knn"], ["--drn_aggr", "max"],
-                                   ["--drn_head", "cartesian"],
+@pytest.mark.parametrize("flags", [["--model", "drn", "--mesh", "1x2"],
+                                   ["--mesh", "2"], ["--ring_knn"],
+                                   ["--model", "drn", "--ring_knn"],
+                                   ["--model", "drn", "--compute_dtype",
+                                    "bfloat16"],
                                    ["--compute_dtype", "bfloat16"],
                                    ["--from_torch", "x.pth.tar"],
                                    ["--graph_mode", "neighbor_list"]])
