@@ -26,12 +26,14 @@ Phases, each printing one line:
      to 3, with the exact launch counts, the artifacts, and its best.ckpt
      re-evaluated by the evaluate CLI;
   9. kernel_knn: the DRN's graph kernels knn_kth and knn_extract against
-     their plain versions, bitwise (t, idx, d2v, rel), on (a) the DRN's
-     own round-1 features of an evaluation batch (B=40, N=2048, H=64,
-     k=16, cap 32), (b) lattice features with many equal distances, (c)
-     padded rows, an empty and a 3-node event at N=1536; with both
-     kernels' times at N=2048 and N=1536, the plain versions' and the
-     bounds;
+     their plain versions, bitwise (t, sq, idx, d2v, rel), on (a) the
+     DRN's own round-1 features of an evaluation batch (B=40, N=2048,
+     H=64, k=16, cap 32), (b) lattice features with many equal distances,
+     (c) padded rows, an empty and a 3-node event at N=1536, (d) scattered
+     masks with a hub at N=2048, N=1003 and H=13; padded rows must hold
+     t=+inf, empty slots and a zero relation row; with both kernels' times
+     at N=2048 and N=1536 beside the plain versions', the bounds and the
+     times of the kernels' first design (KNN_FIRST_DESIGN_MS);
  10. kernel_edge_mlp: edge_mlp_fwd against its plain version for add,
      mean and max on the graph of (a), within GRAD_RTOL/GRAD_ATOL, and
      its time at the evaluation shape;
@@ -735,6 +737,13 @@ def knn_bound(mask, H: int, cap: int = 0, rel: bool = False):
     return bound(nbytes, ops)
 
 
+# knn_kth / knn_extract ms of the kernels' first design (every row against
+# every padded source, one dot product per lane) at B=40, H=64 on the same
+# features, on an H100 80GB HBM3 at 700 W (PERF.md's kernel table), printed
+# beside this run's
+KNN_FIRST_DESIGN_MS = {2048: (5.29, 5.59), 1536: (3.04, 3.23)}
+
+
 def kernel_knn_phase(device, model, batch):
     import numpy as np
     import torch
@@ -758,6 +767,13 @@ def kernel_knn_phase(device, model, batch):
             if not torch.equal(a, b):
                 fail(f"knn_extract case {name}: {what} differs from the "
                      f"plain version in {int((a != b).sum())} entries")
+        pad = ~mask
+        if not (bool(torch.isposinf(t[pad]).all())
+                and bool((out[0][pad] == 0).all())
+                and bool(torch.isposinf(out[1][pad]).all())
+                and not bool(out[2][pad].any())):
+            fail(f"knn case {name}: a padded query row is not t=+inf, "
+                 "empty slots and a zero relation row")
         for a, b in ((t, tp), (out[1], plain[1])):
             fin = torch.isfinite(b)
             if fin.any():
@@ -794,6 +810,31 @@ def kernel_knn_phase(device, model, batch):
     t_c, _ = check("c", h_c, mask_c)
     if not bool(torch.isinf(t_c[1]).all()):
         fail("knn case c: a 3-node event has a finite k-th distance")
+    # (d) scattered masks (about 60 % valid, random gaps) at N=2048, at a
+    # size that is no multiple of the kernels' row and source tiles, and at
+    # a width that is no multiple of a float4; event 0 empty, event 1
+    # sparse, event 2 a hub: its first real node at the origin, the others
+    # on a shell around it, so every node relates to it (a relation row
+    # past the extraction's member list)
+    scattered, hub_deg = 0, []
+    for bd, nd, hd in ((8, 2048, H), (6, 1003, H), (4, 1003, 13)):
+        h_d = torch.as_tensor(rng.normal(size=(bd, nd, hd)),
+                              dtype=torch.float32, device=device)
+        mask_d = torch.as_tensor(rng.random((bd, nd)) < 0.6, device=device)
+        mask_d[0] = False
+        mask_d[1, :] = False
+        mask_d[1, ::97] = True           # a sparse event: few, far apart
+        r = torch.as_tensor(rng.uniform(1.0, 2.0, size=(nd, 1)),
+                            dtype=torch.float32, device=device)
+        h_d[2] = h_d[2] / h_d[2].norm(dim=-1, keepdim=True) * r
+        hub = int(torch.nonzero(mask_d[2])[0, 0])
+        h_d[2, hub] = 0.0
+        _, (_, _, rel_d) = check(f"d ({bd}, {nd}, {hd})", h_d, mask_d)
+        scattered += int(mask_d.sum())
+        hub_deg.append(int(rel_d[2, hub].sum()))
+    if min(hub_deg) <= 64:
+        fail(f"knn case d: the hubs relate to {hub_deg} nodes; a row past "
+             "the extraction's 64-member list was not exercised")
 
     times = {}
     for n in (N, 1536):
@@ -807,12 +848,15 @@ def kernel_knn_phase(device, model, batch):
             kth_plain_ms=cuda_ms(lambda: knn_kth_torch(h, m, k), 2),
             extract_plain_ms=cuda_ms(
                 lambda: knn_extract_torch(h, m, t, sq, cap, True), 2),
+            first_design_ms=KNN_FIRST_DESIGN_MS[n],
             real_rows=int(m.sum()), kth_bound=kb, extract_bound=eb)
     say("kernel_knn", names=["knn_kth", "knn_extract"],
-        cases="a,b,c bitwise equal (t, idx, d2v, rel)", shape=[B, N, H],
+        cases="a,b,c,d bitwise equal (t, sq, idx, d2v, rel); padded rows "
+              "t=+inf, empty slots, zero rel", shape=[B, N, H],
         k=k, cap=cap, real_rows=int(mask_a.sum()),
         rows_past_cap_a=cap_rows, max_degree_a=int(deg[mask_a].max()),
-        equal_adjacent_slots_b=ties, times=times)
+        equal_adjacent_slots_b=ties, real_rows_d=scattered,
+        hub_degree_d=hub_deg, times=times)
     tk, te = times[N], times[N]
     return (h_a, t_a), [
         {"max_abs_err": max(errs), "ms": tk["kth_ms"],

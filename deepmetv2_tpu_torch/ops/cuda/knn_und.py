@@ -20,15 +20,24 @@ from deepmetv2_tpu_torch.ops.knn_und import (knn_extract_torch,
                                              knn_kth_torch, neighborhood,
                                              supported)
 
-# widest h the kernels take: at most 8 query rows and a 32-row chunk of
-# sources, both H wide, fit in shared memory beside the 160 KB of d² rows
+# widest h the kernels take: 8 query rows and two 64-row chunks of sources,
+# all H wide, fit in shared memory beside 64 KB of d² rows (at N <= 8192;
+# a shape past the card's shared memory is refused at launch and raises)
 MAX_H = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "knn_kth": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "knn_extract": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "knn_kth": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "knn_extract": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                    _P],
 }
+
+
+def _scratch(B: int, N: int, device):
+    """The compaction's scratch: ``perm [B, N]`` (each event's valid ids
+    ascending, then its padded ids) and ``cnt [B]``, both int32."""
+    return (torch.empty((B, N), dtype=torch.int32, device=device),
+            torch.empty((B,), dtype=torch.int32, device=device))
 
 
 def _prepare(name: str, h: torch.Tensor, mask: torch.Tensor, *others):
@@ -59,9 +68,11 @@ def knn_kth(h: torch.Tensor, mask: torch.Tensor, k: int
         raise ValueError(f"knn_kth: k={k} outside 1..N={N}")
     sq = torch.empty((B, N), dtype=torch.float32, device=h.device)
     t = torch.empty_like(sq)
+    perm, cnt = _scratch(B, N, h.device)
     build.launch(build.function("knn_und", "knn_kth", _ARGTYPES["knn_kth"]),
                  h.device, h.data_ptr(), mask.data_ptr(), sq.data_ptr(),
-                 t.data_ptr(), B, N, H, int(k))
+                 t.data_ptr(), perm.data_ptr(), cnt.data_ptr(), B, N, H,
+                 int(k))
     knn_kth.launches += 1
     return t, sq
 
@@ -88,11 +99,13 @@ def knn_extract(h: torch.Tensor, mask: torch.Tensor, t: torch.Tensor,
     d2v = torch.empty((B, N, cap), dtype=torch.float32, device=dev)
     rel = (torch.empty((B, N, N), dtype=torch.bool, device=dev)
            if want_rel else None)
+    perm, cnt = _scratch(B, N, dev)
     build.launch(build.function("knn_und", "knn_extract",
                                 _ARGTYPES["knn_extract"]),
                  dev, h.data_ptr(), mask.data_ptr(), t.data_ptr(),
                  sq.data_ptr(), idx.data_ptr(), d2v.data_ptr(),
-                 rel.data_ptr() if want_rel else None, B, N, H, int(cap))
+                 rel.data_ptr() if want_rel else None, perm.data_ptr(),
+                 cnt.data_ptr(), B, N, H, int(cap))
     knn_extract.launches += 1
     return idx, d2v, rel
 

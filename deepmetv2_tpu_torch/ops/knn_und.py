@@ -19,8 +19,10 @@ with ``sq`` and ``dot`` summed over the feature axis in ascending order,
 one rounded operation at a time (no fused multiply-add), so that d² is
 symmetric bit for bit, t_i is one of the values the extraction compares
 against it, and kernel and plain version agree bit for bit on the card.
-Rows of padded queries are computed like any other row; consumers mask
-them.
+
+Rows of padded queries (mask false) have defined outputs: ``t = +inf``,
+every slot index 0 with d² +inf, and an all-false relation row.  Real rows
+do not depend on padded nodes at all: leaving them out moves no bit.
 """
 
 from __future__ import annotations
@@ -72,8 +74,8 @@ def knn_kth_torch(h: torch.Tensor, mask: torch.Tensor, k: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(t, sq)``: ``t [B, N]`` per node the k-th smallest masked d² (self
     and padded sources are +inf), +inf where fewer than k sources are
-    valid, and the squared norms ``sq [B, N]`` it was computed with, which
-    the extraction takes."""
+    valid and on padded rows, and the squared norms ``sq [B, N]`` it was
+    computed with (every row's), which the extraction takes."""
     h = h.detach().float()
     B, N, _ = h.shape
     if not 1 <= k <= N:
@@ -83,7 +85,8 @@ def knn_kth_torch(h: torch.Tensor, mask: torch.Tensor, k: int
     inf = torch.tensor(float("inf"), device=h.device)
     for b in range(B):
         d2m = torch.where(_valid(mask[b]), event_d2(h[b], sq[b]), inf)
-        t[b] = torch.kthvalue(d2m, k, dim=-1).values
+        t[b] = torch.where(mask[b], torch.kthvalue(d2m, k, dim=-1).values,
+                           inf)
     return t, sq
 
 
@@ -95,7 +98,8 @@ def knn_extract_torch(h: torch.Tensor, mask: torch.Tensor, t: torch.Tensor,
     (d², index) order, from the thresholds and squared norms of
     ``knn_kth_torch``: ``idx [B, N, cap]`` int32 (0 where the row ran
     dry), ``d2v [B, N, cap]`` f32 (+inf where dry), and with ``want_rel``
-    the relation ``rel [B, N, N]`` bool."""
+    the relation ``rel [B, N, N]`` bool.  Padded query rows hold no member:
+    their slots are all dry and their relation rows false."""
     h = h.detach().float()
     B, N, _ = h.shape
     idx = torch.empty((B, N, cap), dtype=torch.int32, device=h.device)
@@ -106,7 +110,7 @@ def knn_extract_torch(h: torch.Tensor, mask: torch.Tensor, t: torch.Tensor,
     for b in range(B):
         d2 = event_d2(h[b], sq[b])
         u = (((d2 <= t[b][:, None]) | (d2 <= t[b][None, :]))
-             & _valid(mask[b]))
+             & _valid(mask[b]) & mask[b][:, None])
         vals, order = torch.sort(torch.where(u, d2, inf), dim=-1,
                                  stable=True)
         vals, order = vals[:, :cap], order[:, :cap]

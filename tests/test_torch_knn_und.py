@@ -82,17 +82,19 @@ def _boundary(h, t_ref):
             | (np.abs(d2 - t_ref[:, None, :]) <= tol))
 
 
-def _assert_same_graph(j, t, h, max_rows=0):
-    """The port's graph equals JAX's.  With ``max_rows`` > 0, up to that
-    many rows may differ, each only through relation pairs on a threshold
-    boundary (``_boundary``); every other row is held exactly."""
+def _assert_same_graph(j, t, h, mask, max_rows=0):
+    """The port's graph equals JAX's on real query rows (``mask``; the JAX
+    kernels leave padded query rows undefined).  With ``max_rows`` > 0, up
+    to that many rows may differ, each only through relation pairs on a
+    threshold boundary (``_boundary``); every other row is held exactly."""
     tol = _ulp_tol(h)
     B, N, _ = tol.shape
-    fin = np.isfinite(j["t"])
-    np.testing.assert_array_equal(np.isfinite(t["t"]), fin)
+    fin = np.isfinite(j["t"]) & mask
+    np.testing.assert_array_equal(np.isfinite(t["t"])[mask],
+                                  np.isfinite(j["t"])[mask])
     t_tol = tol.max(axis=2)
     assert np.all(np.abs(t["t"][fin] - j["t"][fin]) <= t_tol[fin])
-    rel_off = t["rel"] != j["rel"]
+    rel_off = (t["rel"] != j["rel"]) & mask[:, :, None]
     assert np.all(_boundary(h, j["t"])[rel_off]), "a non-boundary pair differs"
     rows = (rel_off.any(-1)
             | (_canon(t["idx"], t["mask"]) != _canon(j["idx"], j["mask"]))
@@ -124,7 +126,7 @@ def _assert_same_graph(j, t, h, max_rows=0):
 def test_knn_und_matches_jax(N, H, k):
     h, mask = _gaussian(2, N, H, seed=N + H + k)
     j, t = _both(h, mask, k, 32)
-    _assert_same_graph(j, t, h, max_rows=2)
+    _assert_same_graph(j, t, h, mask, max_rows=2)
     # slots in ascending d² order, the relation symmetric on real rows
     d = np.where(t["mask"], t["d2v"], np.inf)
     assert np.all(d[..., 1:] >= d[..., :-1])
@@ -144,7 +146,7 @@ def test_knn_und_hub_truncates_at_cap():
     h[:, 0] = 0.0
     mask = np.ones((B, N), bool)
     j, t = _both(h, mask, k, cap)
-    _assert_same_graph(j, t, h, max_rows=2)
+    _assert_same_graph(j, t, h, mask, max_rows=2)
     assert t["rel"][0, 0].sum() > cap and t["mask"][0, 0].sum() == cap
     related = np.flatnonzero(t["rel"][0, 0])
     nearest = related[np.argsort((h[0, related].astype(np.float64) ** 2)
@@ -161,7 +163,7 @@ def test_knn_und_lattice_ties():
     mask = np.ones((2, 128), bool)
     mask[1, 100:] = False
     j, t = _both(h, mask, 6, 16)
-    _assert_same_graph(j, t, h)
+    _assert_same_graph(j, t, h, mask)
     np.testing.assert_array_equal(t["idx"], j["idx"])   # slot order too
     assert (t["rel"].sum(-1) > 16).any()                # rows past the cap
 
@@ -172,7 +174,7 @@ def test_knn_und_empty_and_tiny_events():
     mask = np.zeros((2, 128), bool)
     mask[1, :3] = True   # event 0 empty; event 1 has 3 < k nodes
     j, t = _both(h, mask, 4, 8)
-    _assert_same_graph(j, t, h)
+    _assert_same_graph(j, t, h, mask)
     assert not t["mask"][0].any()
     assert np.all(np.isinf(t["t"][1]))       # fewer than k valid sources
     deg = t["mask"][1].sum(-1)
@@ -183,7 +185,7 @@ def test_knn_und_compacted_size():
     """N=1536, the second round's capacity after compaction."""
     h, mask = _gaussian(2, 1536, 64, seed=5)
     j, t = _both(h, mask, 16, 32)
-    _assert_same_graph(j, t, h, max_rows=4)
+    _assert_same_graph(j, t, h, mask, max_rows=4)
 
 
 def test_plain_d2_is_symmetric_and_sequential():
@@ -207,6 +209,99 @@ def test_unsupported_shape_raises():
     h = torch.zeros((1, 100, 8))
     with pytest.raises(NotImplementedError, match="composed path"):
         tdg.build_dyn_graph(h, torch.ones((1, 100), dtype=torch.bool), k=4)
+
+
+def _mask(kind, B, N, rng):
+    """Node masks: ``prefix`` (each event's first nodes), ``scattered``
+    (about 60 % valid with random gaps), ``empty`` (event 0 has no node),
+    ``tiny`` (event 0 has 3 scattered nodes, fewer than k + 1)."""
+    if kind == "prefix":
+        return np.arange(N)[None, :] < rng.integers(N // 2, N, size=B)[:, None]
+    mask = rng.random((B, N)) < 0.6
+    if kind == "empty":
+        mask[0] = False
+    elif kind == "tiny":
+        mask[0] = False
+        mask[0, [5, 40, 77]] = True
+    return mask
+
+
+@pytest.mark.parametrize("kind", ["prefix", "scattered", "empty", "tiny"])
+def test_padded_rows_are_defined(kind):
+    """A padded query row gets t = +inf, every slot index 0 with d² +inf,
+    and an all-false relation row, from the plain versions and through the
+    wrapper (the kernels write the same, chip_smoke.py)."""
+    rng = np.random.default_rng(21)
+    B, N, H, k, cap = 3, 128, 8, 4, 8
+    h = torch.as_tensor(rng.normal(size=(B, N, H)).astype(np.float32))
+    mask = torch.as_tensor(_mask(kind, B, N, rng))
+    pad = ~mask
+    t, sq = tk.knn_kth_torch(h, mask, k)
+    idx, d2v, rel = tk.knn_extract_torch(h, mask, t, sq, cap, True)
+    assert torch.isposinf(t[pad]).all()
+    assert (idx[pad] == 0).all() and torch.isposinf(d2v[pad]).all()
+    assert not rel[pad].any()
+    assert torch.equal(sq, tk.sq_norms(h))        # every row's norm
+    # real rows with k sources keep members; no row names a padded node
+    full = (mask.sum(-1) > k)[:, None] & mask
+    assert torch.isfinite(d2v[full]).any(-1).all()
+    assert not (rel & pad[:, None, :]).any()
+    nbr, d2n, tt, rr = t_knn(h, mask, k=k, cap=cap, want_rel=True)
+    assert torch.equal(tt, t) and torch.equal(rr, rel)
+    assert not nbr.mask[pad].any()
+
+
+def _event_reference(h, mask, k, cap):
+    """Each event cut down to its real nodes, its graph built from
+    ``event_d2`` of that cut alone, and the ids mapped back: ``(t, idx,
+    d2v, rel)`` of the real rows, in the layout of the plain versions."""
+    B, N, _ = h.shape
+    inf = float("inf")
+    t = torch.full((B, N), inf)
+    idx = torch.zeros((B, N, cap), dtype=torch.int32)
+    d2v = torch.full((B, N, cap), inf)
+    rel = torch.zeros((B, N, N), dtype=torch.bool)
+    for b in range(B):
+        ids = torch.nonzero(mask[b])[:, 0]
+        n = len(ids)
+        if n == 0:
+            continue
+        hb = h[b, ids]
+        d2 = tk.event_d2(hb, tk.sq_norms(hb[None])[0])
+        off = ~torch.eye(n, dtype=torch.bool)
+        d2m = torch.where(off, d2, torch.tensor(inf))
+        tb = (torch.kthvalue(d2m, k, dim=-1).values if k <= n
+              else torch.full((n,), inf))
+        u = ((d2 <= tb[:, None]) | (d2 <= tb[None, :])) & off
+        vals, order = torch.sort(torch.where(u, d2, torch.tensor(inf)),
+                                 dim=-1, stable=True)
+        m = min(cap, n)
+        vals, order = vals[:, :m], order[:, :m]
+        got = torch.isfinite(vals)
+        t[b, ids] = tb
+        d2v[b, ids, :m] = torch.where(got, vals, torch.tensor(inf))
+        idx[b, ids, :m] = torch.where(got, ids[order],
+                                      torch.zeros_like(order)).to(torch.int32)
+        rel[b, ids[:, None], ids[None, :]] = u
+    return t, idx, d2v, rel
+
+
+@pytest.mark.parametrize("N,H,k,cap", [(128, 8, 4, 8), (256, 64, 16, 32)])
+def test_real_rows_ignore_padded_nodes(N, H, k, cap):
+    """On scattered masks the plain versions' real rows equal, bit for bit,
+    the graph of each event cut down to its real nodes: leaving padded
+    sources (and rows) out moves no real row."""
+    rng = np.random.default_rng(N + k)
+    B = 3
+    h = torch.as_tensor(rng.normal(size=(B, N, H)).astype(np.float32))
+    mask = torch.as_tensor(_mask("tiny", B, N, rng))
+    t, sq = tk.knn_kth_torch(h, mask, k)
+    idx, d2v, rel = tk.knn_extract_torch(h, mask, t, sq, cap, True)
+    want = _event_reference(h, mask, k, cap)
+    for what, got, ref in zip(("t", "idx", "d2v", "rel"),
+                              (t, idx, d2v, rel), want):
+        assert torch.equal(got, ref), what
+    assert torch.isfinite(t[1:][mask[1:]]).all()   # real thresholds exist
 
 
 # ------------------------------------------------------ coarsen, dyn_graph
@@ -308,4 +403,25 @@ def test_tiled_cut_weights_match_jax(tile_c):
     g = tdg.build_dyn_graph(torch.as_tensor(h0), torch.as_tensor(mask), k=4)
     want = tdg.cut_matching(g, torch.as_tensor(hp), torch.as_tensor(mask))
     got = tc.handshake_matching_dense(tW, torch.as_tensor(mask))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_cut_matching_ignores_padded_rel_rows():
+    """The dense matching masks query rows itself: random garbage in the
+    padded rows of ``rel`` gives the same matching as the zero rows the
+    graph build writes."""
+    import dataclasses
+
+    rng = np.random.default_rng(14)
+    B, N, H = 2, 256, 16
+    h, mask = _pair(rng, B, N, H, frac=0.6)
+    h = torch.as_tensor(np.where(mask[..., None], h, 0).astype(np.float32))
+    mask = torch.as_tensor(mask)
+    hp = torch.as_tensor(rng.normal(size=(B, N, H)).astype(np.float32))
+    g = tdg.build_dyn_graph(h, mask, k=6)
+    assert not g.rel[~mask].any()
+    junk = g.rel.clone()
+    junk[~mask] = torch.as_tensor(rng.random((int((~mask).sum()), N)) < 0.5)
+    want = tdg.cut_matching(g, hp, mask)
+    got = tdg.cut_matching(dataclasses.replace(g, rel=junk), hp, mask)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
