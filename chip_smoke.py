@@ -5,7 +5,9 @@
 
 Phases, each printing one line:
   1. device: the card, and its name and power limit from nvidia-smi;
-  2. build: every CUDA kernel source in csrc/, one nvcc each, in parallel;
+  2. build: every CUDA kernel source in csrc/, one nvcc each, in parallel,
+     with each source's seconds and edge_mlp.cu's registers and spills per
+     kernel;
   3. kernel: window_max forward against its plain PyTorch version, bitwise,
      on (a) the evaluation shape, (b) clustered eta with value ties and
      pairs on the radius boundary, (c) padded nodes and empty events; with
@@ -30,19 +32,21 @@ Phases, each printing one line:
      DRN's own round-1 features of an evaluation batch (B=40, N=2048,
      H=64, k=16, cap 32), (b) lattice features with many equal distances,
      (c) padded rows, an empty and a 3-node event at N=1536, (d) scattered
-     masks with a hub at N=2048, N=1003 and H=13; padded rows must hold
-     t=+inf, empty slots and a zero relation row; with both kernels' times
+     masks with a hub at N=2048, N=1003 and H=13, (e) N=4096 and N=8192 at
+     B=2, where the tiled matching's relation must be rel; padded rows must
+     hold t=+inf, empty slots and a zero relation row; with both kernels' times
      at N=2048 and N=1536 beside the plain versions', the bounds and the
      times of the kernels' first design (KNN_FIRST_DESIGN_MS);
  10. kernel_edge_mlp: edge_mlp_fwd against its plain version for add,
-     mean and max on the graph of (a), within GRAD_RTOL/GRAD_ATOL, and
-     its time at the evaluation shape;
+     mean and max on the graph of (a), within GRAD_RTOL/GRAD_ATOL, its
+     per-node first layer (edge_mlp_proj) against the plain product in
+     f64, and its time at the evaluation shape;
  11. evaluate_drn: the evaluate CLI with --model drn on 2000 synthetic
      events at batch 8 (ckpts_syn_drn/best.ckpt), exact launch counts,
      the loss against a second pass over the same batches, and every
      event's MET and graph decisions against the JAX package's fused path
      (GOLDEN_DRN_MET, GOLDEN_DRN_GRAPHS): only events whose graphs differ
-     may be off;
+     may be off; the loss printed beside DRN_LOSS_FIRST_DESIGN;
  12. predict_drn: the predict CLI with --model drn over the 2000 events;
  13. profile: one evaluation step's and one train step's device time by
      kernel (torch.profiler), and one DRN evaluation step's;
@@ -52,8 +56,10 @@ Phases, each printing one line:
      of a real train-mode loss, (b) rows of repeated prototypes (exact max
      ties, split evenly), (c) empty rows and padded events at N=1536, (d) a
      list cut to its two-way edges by want_mirror; two launches bitwise
-     equal; the conv's gradients in train mode against
-     the plain path in f64; its time at (a);
+     equal; the conv's gradients in train mode against the plain path in
+     f64; the per-node gradient kernels (edge_mlp_node_grads) against
+     their plain products in f64; the reverse index's kernels against
+     reverse_slots (cases a–d and random lists at N=8192); its time at (a);
  15. drn_train_resume: 10 DRN train steps from ckpts_syn_drn/best.ckpt
      (weights, BatchNorm, the optax chain's AdamW state, scheduler), each
      loss held to GOLDEN_DRN_TRAIN_LOSSES by the rule stated there, and the
@@ -124,6 +130,11 @@ DRN_EVENT_RTOL = 1e-4      # an event's MET against the JAX package's
 DRN_MAX_GRAPH_EVENTS = 80
 DRN_KEPT_RTOL = 1e-5       # the loss over the other events against JAX's
 DRN_CLI_RTOL = 1e-6        # the CLI's loss against the checked pass's
+# The evaluate CLI's DRN loss on an H100 80GB HBM3 with the edge-MLP
+# kernels' first design (PERF.md's findings): the redesigned forward keeps
+# its bits, so the loss is printed beside it (not a gate: the dense
+# matching's torch products may round otherwise under another torch)
+DRN_LOSS_FIRST_DESIGN = 41.38379669189453
 DRN_TRAIN_B, DRN_REFRESH = 16, 30   # ckpts_syn_drn's batch, bn_refresh_batches
 # JAX package, its DRN train step (fused path, Pallas in interpret mode)
 # from ckpts_syn_drn/best.ckpt with the optax chain (clip 10, AdamW) on the
@@ -234,6 +245,30 @@ def bound(nbytes: int, ops: int):
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             t_bytes, t_ops)
+
+
+def ptxas_table(log: str):
+    """Per compiled kernel of a ``-Xptxas -v`` log: its name (demangled
+    roughly: the function and its template arguments), registers and spill
+    bytes (stores + loads)."""
+    import re
+
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
+                      r"(I\w*?EE)?", ln)
+        if m:
+            targs = re.findall(r"Li(\d+)E", m.group(2) or "")
+            name = m.group(1) + (f"<{','.join(targs)}>" if targs else "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append({"kernel": name, "registers": int(m.group(1)),
+                        "spill_bytes": spill})
+            name = None
+    return out
 
 
 def padded_pos(etaphi, mask):
@@ -748,6 +783,9 @@ def kernel_knn_phase(device, model, batch):
     import numpy as np
     import torch
     from deepmetv2_tpu_torch.ops.cuda.knn_und import knn_extract, knn_kth
+    from deepmetv2_tpu_torch.ops.dyn_graph import (build_dyn_graph,
+                                                   cut_matching,
+                                                   dense_matching)
     from deepmetv2_tpu_torch.ops.knn_und import (knn_extract_torch,
                                                  knn_kth_torch)
 
@@ -835,6 +873,37 @@ def kernel_knn_phase(device, model, batch):
     if min(hub_deg) <= 64:
         fail(f"knn case d: the hubs relate to {hub_deg} nodes; a row past "
              "the extraction's 64-member list was not exercised")
+    # (e) the large buckets, N=4096 and N=8192 at B=2 (fewer rows per
+    # block), normal features, a 90 % mask: bitwise as above; the graph
+    # build hands the extraction's relation over (at 8192 the matching's
+    # weights are built in column tiles), and the matching pairs only
+    # real nodes related in it, each the other's partner
+    large = {}
+    for ne in (4096, 8192):
+        h_e = torch.as_tensor(rng.normal(size=(2, ne, H)), dtype=torch.float32,
+                              device=device)
+        mask_e = torch.as_tensor(rng.random((2, ne)) < 0.9, device=device)
+        _, (_, _, rel_e) = check(f"e ({ne})", h_e, mask_e)
+        g = build_dyn_graph(h_e, mask_e, k=k, cap=cap)
+        if g.rel is None or not torch.equal(g.rel, rel_e):
+            fail(f"knn case e ({ne}): the graph build does not hand over the "
+                 "extraction's relation")
+        hp = torch.as_tensor(rng.normal(size=(2, ne, H)), dtype=torch.float32,
+                             device=device)
+        _, partner = cut_matching(g, hp, mask_e)
+        iota = torch.arange(ne, device=device).expand(2, ne)
+        paired = partner != iota
+        if not (torch.equal(torch.gather(partner, 1, partner), iota)
+                and bool(torch.gather(rel_e, 2, partner[..., None].long())
+                         [..., 0][paired].all())
+                and not bool(paired[~mask_e].any())
+                and bool(paired.any())):
+            fail(f"knn case e ({ne}): the matching pairs nodes outside the "
+                 "relation, or not mutually, or none")
+        large[ne] = {"rel_pairs": int(rel_e.sum()),
+                     "paired": int(paired.sum()),
+                     "dense": dense_matching(2, ne)}
+        del g, h_e, hp, rel_e
 
     times = {}
     for n in (N, 1536):
@@ -851,12 +920,13 @@ def kernel_knn_phase(device, model, batch):
             first_design_ms=KNN_FIRST_DESIGN_MS[n],
             real_rows=int(m.sum()), kth_bound=kb, extract_bound=eb)
     say("kernel_knn", names=["knn_kth", "knn_extract"],
-        cases="a,b,c,d bitwise equal (t, sq, idx, d2v, rel); padded rows "
-              "t=+inf, empty slots, zero rel", shape=[B, N, H],
+        cases="a,b,c,d,e bitwise equal (t, sq, idx, d2v, rel); padded rows "
+              "t=+inf, empty slots, zero rel; e: the tiled matching's "
+              "relation is rel", shape=[B, N, H],
         k=k, cap=cap, real_rows=int(mask_a.sum()),
         rows_past_cap_a=cap_rows, max_degree_a=int(deg[mask_a].max()),
         equal_adjacent_slots_b=ties, real_rows_d=scattered,
-        hub_degree_d=hub_deg, times=times)
+        hub_degree_d=hub_deg, large_e=large, times=times)
     tk, te = times[N], times[N]
     return (h_a, t_a), [
         {"max_abs_err": max(errs), "ms": tk["kth_ms"],
@@ -868,14 +938,36 @@ def kernel_knn_phase(device, model, batch):
          "bound_by": te["extract_bound"][1]}]
 
 
+# edge_mlp_fwd / edge_mlp_bwd ms of the kernels' first design (one warp per
+# node, the first layer per edge, weight gradients folded through shared
+# memory) at the shapes this script times them, on an H100 80GB HBM3 at
+# 700 W (PERF.md's kernel table), printed beside this run's
+EDGE_MLP_FIRST_DESIGN_MS = (1.102, 2.458)
+
+
+def close_to_f64(name: str, got, ref) -> float:
+    """``got`` (f32, on the card) against ``ref`` (the plain product in
+    f64): within GRAD_RTOL·|ref| + GRAD_ATOL·max|ref|; returns the largest
+    difference."""
+    d = (got.double() - ref).abs()
+    tol = GRAD_RTOL * ref.abs() + GRAD_ATOL * float(ref.abs().max())
+    if not bool((d <= tol).all()):
+        fail(f"{name} differs from its plain product in f64 by "
+             f"{float(d.max())} ({int((d > tol).sum())} entries past the "
+             "tolerance)")
+    return float(d.max())
+
+
 def kernel_edge_mlp_phase(device, model, h, mask):
     """edge_mlp_fwd against its plain version on the DRN's round-1 graph of
     the evaluation batch (padded query rows have no valid slot), for each
-    aggregation, and its time at that shape."""
+    aggregation, its first layer's kernel against the plain product, and
+    its time and bound at that shape."""
     import torch
-    from deepmetv2_tpu_torch.ops.cuda.edge_mlp import edge_mlp_fwd
+    from deepmetv2_tpu_torch.ops.cuda.edge_mlp import (edge_mlp_fwd,
+                                                       edge_mlp_proj)
     from deepmetv2_tpu_torch.ops.cuda.knn_und import knn_und_graph
-    from deepmetv2_tpu_torch.ops.edge_mlp import edge_mlp_fwd_torch
+    from deepmetv2_tpu_torch.ops.edge_mlp import edge_mlp_fwd_torch, proj_torch
 
     nbr, _, _ = knn_und_graph(h, mask, k=DRN_K, cap=DRN_CAP)
     mlp = model.convs[0].mlp.params()
@@ -908,22 +1000,31 @@ def kernel_edge_mlp_phase(device, model, h, mask):
                 fail(f"edge_mlp_fwd {aggr} {what} differs from the plain "
                      f"version by {float(d.max())}")
             errs.append(float(d.max()))
+    # the per-node first layer's kernel against its plain product in f64
+    with torch.no_grad():
+        P = edge_mlp_proj(h, w_diff)
+    proj_err = close_to_f64("edge_mlp_proj", P,
+                            proj_torch(h.double(), w_diff.double()))
     B, N, K = nbr.mask.shape
-    edges = int(nbr.mask.sum())
+    edges, nodes = int(nbr.mask.sum()), int(mask.sum())
     with torch.no_grad():
         ms = cuda_ms(lambda: edge_mlp_fwd(*args, "add"), 20)
         plain_ms = cuda_ms(lambda: edge_mlp_fwd_torch(*args, "add"), 3)
     nbytes = 4 * (a.numel() + h.numel() + nbr.idx.numel() + w_diff.numel()
                   + w1.numel() + b1.numel() + B * N * H2 + 2 * H2) \
         + nbr.mask.numel()
-    ops = 2 * (H * F1 + F1 * H2) * edges
+    # what these inputs need: the first layer once per real node, the
+    # second once per valid edge
+    ops = 2 * H * F1 * nodes + 2 * F1 * H2 * edges
     bound_ms, bound_by, t_bytes, t_ops = bound(nbytes, ops)
     say("kernel_edge_mlp", name="edge_mlp_fwd",
-        cases="add,mean,max within rtol 1e-5 + 2e-6 max|plain|",
-        max_abs_err=max(errs), shape=[B, N, K, H, F1, H2],
+        cases="add,mean,max within rtol 1e-5 + 2e-6 max|plain|; the "
+              "projection x.W_diff against its plain product in f64",
+        max_abs_err=max(errs), proj_max_abs_err=proj_err,
+        shape=[B, N, K, H, F1, H2], real_nodes=nodes,
         valid_edges=edges, empty_rows=empty, ms=ms, plain_ms=plain_ms,
         bytes=nbytes, fp32_ops=ops, bound_bytes_ms=t_bytes,
-        bound_ops_ms=t_ops)
+        bound_ops_ms=t_ops, first_design_ms=EDGE_MLP_FIRST_DESIGN_MS[0])
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -986,6 +1087,8 @@ def evaluate_drn_phase(device, work: str, model, cfg):
                 / per_j[~diverged].mean())
     say("evaluate_drn", loss=loss, golden=GOLDEN_DRN_LOSS,
         rel_err=abs(loss - GOLDEN_DRN_LOSS) / GOLDEN_DRN_LOSS,
+        loss_first_design=DRN_LOSS_FIRST_DESIGN,
+        same_as_first_design=loss == DRN_LOSS_FIRST_DESIGN,
         jax_tpu_run_loss_not_a_gate=JAX_TPU_DRN_LOSS, launches=launches,
         window_max_launches=window_max.launches, seconds=sec,
         checked_pass_loss=pass_loss, cli_rel_err=cli_rel,
@@ -1076,6 +1179,26 @@ def near_tie_free(h, mask, sign: float):
     below = torch.where(v < top[:, :, None], v,
                         torch.full_like(v, -float("inf"))).max(dim=2).values
     return ~(top - below <= 1e-5 * (1.0 + top.abs()))
+
+
+def check_reverse_index(case: str, nbr) -> int:
+    """The reverse-index kernels against reverse_slots on ``nbr``: equal
+    offsets, and equal order over each event's valid slots; returns the
+    valid slots."""
+    import torch
+    from deepmetv2_tpu_torch.ops.cuda.edge_mlp import reverse_index
+    from deepmetv2_tpu_torch.ops.edge_mlp import reverse_slots
+
+    order, offsets = reverse_index(nbr)
+    want_order, want_offsets = reverse_slots(nbr)
+    torch.cuda.synchronize()
+    B, NK = order.shape
+    used = (torch.arange(NK, device=order.device)[None, :]
+            < want_offsets[:, -1:])
+    if not torch.equal(offsets, want_offsets) or not torch.equal(
+            order[used], want_order[used]):
+        fail(f"reverse_index case {case}: differs from reverse_slots")
+    return int(want_offsets[:, -1].sum())
 
 
 def check_edge_mlp_bwd(case: str, a, x, nbr, w_diff, w1, b1, aggr, g0, g1,
@@ -1170,15 +1293,18 @@ def kernel_edge_mlp_bwd_phase(device, model):
     of the plain path; the kernel's time at (a)."""
     import numpy as np
     import torch
+    from deepmetv2_tpu_torch.data.batching import Neighborhood
     from deepmetv2_tpu_torch.ops.cuda.edge_mlp import (edge_mlp_bwd,
                                                        edge_mlp_conv,
-                                                       edge_mlp_fwd)
+                                                       edge_mlp_fwd,
+                                                       edge_mlp_node_grads)
     from deepmetv2_tpu_torch.ops.cuda.knn_und import knn_und_graph
     from deepmetv2_tpu_torch.ops.dyn_graph import build_dyn_graph
     from deepmetv2_tpu_torch.ops.edge_mlp import (bn_combine,
                                                   edge_mlp_bwd_torch,
                                                   edge_mlp_fwd_torch,
-                                                  messages_torch)
+                                                  messages_torch,
+                                                  node_grads_torch)
 
     rng = np.random.default_rng(11)
     mlp = {k: {n: v.detach() for n, v in d.items()}
@@ -1267,6 +1393,20 @@ def kernel_edge_mlp_bwd_phase(device, model):
     info["d"]["one_sided_slots_dropped"] = int(nbr_a.mask.sum()
                                                - g_d.nbr.mask.sum())
 
+    # the reverse index's kernels against reverse_slots on every case's
+    # lists, and on random lists (duplicate targets in a row, a target
+    # many rows list) at N=8192
+    Br, Nr, Kr = 2, 8192, 8
+    idx_r = torch.as_tensor(rng.integers(0, Nr, size=(Br, Nr, Kr)),
+                            dtype=torch.int32, device=device)
+    idx_r[:, ::5, 0] = 7
+    nbr_r = Neighborhood(idx_r, torch.as_tensor(
+        rng.random((Br, Nr, Kr)) < 0.7, device=device))
+    info["reverse_index_valid_slots"] = {
+        c: check_reverse_index(c, n) for c, n in (
+            ("a", nbr_a), ("b", nbr_b), ("c", nbr_c), ("d", g_d.nbr),
+            ("random lists", nbr_r))}
+
     # two launches, bitwise equal (no atomics)
     with torch.no_grad():
         k0, _, _ = edge_mlp_fwd(a_a, h_a, nbr_a, w_diff, w1, b1, "add")
@@ -1327,24 +1467,42 @@ def kernel_edge_mlp_bwd_phase(device, model):
                  f"f32 plain path's {err_p}, plus GRAD_ATOL)")
         conv_err = max(conv_err, float((k_ - p_).abs().max()))
 
+    # the per-node gradient kernels (dx, dW_diff from dzs) against their
+    # plain products in f64, on (a)'s dzs
+    with torch.no_grad():
+        dzs = r1.dzs
+        dx_n, dwd_n = edge_mlp_node_grads(h_a, dzs, w_diff)
+    ref = node_grads_torch(h_a.double(), dzs.double(), w_diff.double())
+    node_err = max(close_to_f64(f"edge_mlp_node_grads {name}", k_, r_)
+                   for name, k_, r_ in zip(("dx", "dW_diff"), (dx_n, dwd_n),
+                                           ref))
+
     # time and bound at (a)
-    edges = int(nbr_a.mask.sum())
+    edges, nodes = int(nbr_a.mask.sum()), int(batch.mask.sum())
     ms = cuda_ms(lambda: edge_mlp_bwd(*args), 20)
     plain_ms = cuda_ms(lambda: edge_mlp_bwd_torch(*args), 3)
-    nbytes = (4 * (a_a.numel() + 2 * h_a.numel() + nbr_a.idx.numel()
+    # inputs a, x, idx, mask, the weights, agg0, g0, gst; outputs da, dx,
+    # dzs and the weight gradients
+    nbytes = (4 * (a_a.numel() + h_a.numel() + nbr_a.idx.numel()
                    + 2 * (w_diff.numel() + w1.numel() + b1.numel())
-                   + 2 * B * N * H2 + 2 * H2 + B * N * K * H + a_a.numel())
-              + nbr_a.mask.numel())
-    ops = 6 * (H * F1 + F1 * H2) * edges
+                   + 2 * B * N * H2 + 2 * H2 + 2 * a_a.numel()
+                   + h_a.numel()) + nbr_a.mask.numel())
+    # what these inputs need: x.W_diff, D.W_diff^T and X^T.D per real node;
+    # z1, de0 and dW1 per valid edge
+    ops = 6 * H * F1 * nodes + 6 * F1 * H2 * edges
     bound_ms, bound_by, t_bytes, t_ops = bound(nbytes, ops)
     say("kernel_edge_mlp_bwd", name="edge_mlp_bwd",
         cases="a,b,c,d x add,mean,max within rtol 1e-5 + 2e-6 max|ref| of "
-              "the plain version in f64; two launches bitwise equal",
+              "the plain version in f64; two launches bitwise equal; dx and "
+              "dW_diff from dzs against their plain products in f64; the "
+              "reverse index equal to reverse_slots",
         info=info,
-        max_abs_err=max(errs), conv_grad_max_abs_err=conv_err,
-        conv_grads=conv_info, shape=[B, N, K, H, F1, H2], valid_edges=edges, ms=ms,
-        plain_ms=plain_ms, bytes=nbytes, fp32_ops=ops,
-        bound_bytes_ms=t_bytes, bound_ops_ms=t_ops)
+        max_abs_err=max(errs), node_grads_max_abs_err=node_err,
+        conv_grad_max_abs_err=conv_err, conv_grads=conv_info,
+        shape=[B, N, K, H, F1, H2], real_nodes=nodes, valid_edges=edges,
+        ms=ms, plain_ms=plain_ms, bytes=nbytes, fp32_ops=ops,
+        bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
+        first_design_ms=EDGE_MLP_FIRST_DESIGN_MS[1])
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1387,7 +1545,7 @@ def drn_plain_f64_step(model, opt_state, tcfg, host, rounds):
     def graph(h, mask, **kw):
         nbr = next(graphs)[0]
         return DynGraph(nbr=Neighborhood(nbr.idx.cpu(), nbr.mask.cpu()),
-                        d2v=None, t=None, h0=h)
+                        d2v=None, t=None)
 
     def match(g, h, mask, *a, **kw):
         _, cluster, partner = next(matches)
@@ -1683,9 +1841,14 @@ def main() -> int:
     t = time.perf_counter()
     reports = build.build()
     sec = time.perf_counter() - t
-    regs = {k: [ln.split(":", 1)[1].strip() for ln in v.splitlines()
+    regs = {k: [ln.split(":", 1)[1].strip() for ln in v["log"].splitlines()
                 if "registers" in ln] for k, v in reports.items()}
-    say("build", kernels=list(build.KERNELS), seconds=sec, ptxas=regs)
+    say("build", kernels=list(build.KERNELS), seconds=sec,
+        seconds_by_source={k: v["seconds"] for k, v in reports.items()},
+        ptxas=regs)
+    if "edge_mlp" in reports:
+        say("build_edge_mlp", seconds=reports["edge_mlp"]["seconds"],
+            kernels=ptxas_table(reports["edge_mlp"]["log"]))
 
     # 3-4. kernels against their plain versions
     cases, edge_args, fwd = kernel_phase(device)

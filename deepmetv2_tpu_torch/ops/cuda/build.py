@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Sequence
 
@@ -44,12 +45,16 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+def build(names: Iterable[str] = KERNELS) -> Dict[str, Dict]:
     """Compile every kernel in ``names`` that is not built yet, one ``nvcc``
-    per source, all started together.  Returns each compiled kernel's
-    ``ptxas`` report (registers, shared memory, spills); raises with the
+    per source, all started together.  Returns for each compiled kernel
+    its ``ptxas`` report (``log``: registers, shared memory, spills) and
+    the wall seconds from the start until its ``nvcc`` was seen to end
+    (``seconds``; the builds are awaited in order, so a short one may be
+    counted until a longer one before it ended); raises with the
     compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     procs = {}
     for name in names:
         out = library_path(name)
@@ -67,7 +72,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)       # atomic: concurrent builders agree
-        reports[name] = log
+        reports[name] = {"log": log, "seconds": time.perf_counter() - t0}
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return reports

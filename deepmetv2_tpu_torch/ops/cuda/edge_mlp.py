@@ -4,8 +4,12 @@
 
 ``edge_mlp_fwd`` and ``edge_mlp_bwd`` launch their kernels for a CUDA
 tensor and take the plain versions (ops/edge_mlp.py: ``edge_mlp_fwd_torch``,
-``edge_mlp_bwd_torch``) for a CPU tensor; a CUDA tensor never reaches a
-plain version, and a failed build or launch raises.  ``EdgeMLP`` is the
+``edge_mlp_bwd_torch``) for a CPU tensor; so do ``edge_mlp_proj`` and
+``edge_mlp_node_grads``, the per-node kernels both passes are built from
+(the first layer x·W_diff, and its gradients dx and dW_diff), and
+``reverse_index``, the lists' transpose the backward sums through.  A CUDA
+tensor never reaches a plain version, and a failed build or launch
+raises.  ``EdgeMLP`` is the
 ``torch.autograd.Function`` that pairs them on both devices.
 """
 
@@ -21,25 +25,58 @@ from deepmetv2_tpu_torch.ops.cuda import build
 from deepmetv2_tpu_torch.ops.edge_mlp import (MAX_DIM, EdgeMLPGrads,
                                               bn_combine, edge_mlp_bwd_torch,
                                               edge_mlp_fwd_torch,
-                                              reverse_slots)
+                                              node_grads_torch, proj_torch,
+                                              reverse_slots, supported)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = [_P] * 11 + [_I] * 7 + [_P]
-_BWD_ARGS = [_P] * 18 + [_I] * 7 + [_P]
-_DX_ARGS = [_P] * 4 + [_I] * 4 + [_P]
+_FWD_ARGS = [_P] * 12 + [_I] * 7 + [_P]
+_BWD_ARGS = [_P] * 24 + [_I] * 7 + [_P]
+_PROJ_ARGS = [_P] * 3 + [_I] * 3 + [_P]
+_NODE_ARGS = [_P] * 6 + [_I] * 3 + [_P]
+def _layout(B: int, N: int, K: int, F1: int) -> Tuple[int, int, int, int]:
+    """The kernels' scratch shapes (csrc/edge_mlp.cu: edge_mlp_layout):
+    ``(F1s, groups, node_blocks, chunks)``, F1s the row stride of the first
+    layer's per-node term and of the per-slot dz0 rows, then the rows of
+    the edge kernels' partial sums (one per node group) and of the node
+    kernel's, and the reverse index's slot chunks per event."""
+    out = (ctypes.c_int * 4)()
+    err = build.function("edge_mlp", "edge_mlp_layout", [_I] * 4 + [_P])(
+        B, N, K, F1, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"edge_mlp_layout failed: cudaError {err}")
+    return tuple(out)
 
 
-def _num_blocks(B: int, N: int) -> int:
-    """Rows of the partial sums (statistics, weight gradients) the kernels
-    write, one per block."""
-    return build.function("edge_mlp", "edge_mlp_num_blocks", [_I, _I])(B, N)
+def reverse_index(nbr: Neighborhood) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(order [B, N·K], offsets [B, N + 1])``, int32: the transpose of the
+    lists as ``reverse_slots`` gives it (each target's valid slots
+    ``i·K + k`` in ascending order), by the reverse-index kernels of
+    csrc/edge_mlp.cu (a stable counting sort; N at most 8192); on the CPU
+    ``reverse_slots`` itself.  On the card only each event's first
+    ``offsets[b, N]`` entries of ``order`` are written."""
+    if build.on_cpu("reverse_index", nbr.idx):
+        return reverse_slots(nbr)
+    B, N, K = nbr.idx.shape
+    idx, mask = nbr.idx.contiguous(), nbr.mask.contiguous()
+    dev = idx.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    hist = torch.empty((B, _layout(B, N, K, 1)[3], N), **i32)
+    cnt = torch.empty((B, N), **i32)
+    order = torch.empty((B, N * K), **i32)
+    offsets = torch.empty((B, N + 1), **i32)
+    build.launch(build.function("edge_mlp", "edge_mlp_reverse",
+                                [_P] * 6 + [_I] * 3 + [_P]), dev,
+                 idx.data_ptr(), mask.data_ptr(), hist.data_ptr(),
+                 cnt.data_ptr(), order.data_ptr(), offsets.data_ptr(),
+                 B, N, K)
+    return order, offsets
 
 
 def _check(name: str, aggr: str, args, nbr: Neighborhood, *node) -> None:
     """Raise on what the kernels do not take: ``args`` = (a [B, N, F1], x
     [B, N, H], w_diff [H, F1], w1 [F1, H2], b1 [H2]) f32, ``node`` further
     [B, N, H2] f32 tensors, idx int32 and mask bool [B, N, K], all on x's
-    device, widths at most MAX_DIM."""
+    device, K and the widths at most MAX_DIM."""
     if aggr not in ("add", "mean", "max"):
         raise ValueError(f"unknown aggr {aggr!r}")
     a, x, w_diff, w1, b1 = args
@@ -57,9 +94,48 @@ def _check(name: str, aggr: str, args, nbr: Neighborhood, *node) -> None:
         raise TypeError(f"{name}: a, x and the weights must be float32")
     if nbr.idx.dtype != torch.int32 or nbr.mask.dtype != torch.bool:
         raise TypeError(f"{name}: idx must be int32 and mask bool")
-    if max(H, F1, H2) > MAX_DIM:
-        raise ValueError(f"{name}: H, F1, H2 = {H}, {F1}, {H2}; each must be "
-                         f"at most {MAX_DIM}")
+    if not supported(K, H, F1, H2):
+        raise ValueError(f"{name}: K, H, F1, H2 = {K}, {H}, {F1}, {H2}; each "
+                         f"must be in 1..{MAX_DIM}")
+
+
+def edge_mlp_proj(x: torch.Tensor, w_diff: torch.Tensor) -> torch.Tensor:
+    """The first layer's per-node term ``P = x·W_diff [B, N, F1]`` by the
+    kernel that both edge passes start with (``proj_torch`` on the CPU)."""
+    if build.on_cpu("edge_mlp_proj", x):
+        return proj_torch(x, w_diff)
+    B, N, H = x.shape
+    F1 = w_diff.shape[1]
+    x, w_diff = x.detach().contiguous(), w_diff.detach().contiguous()
+    P = torch.empty((B, N, _layout(B, N, 1, F1)[0]),
+                    dtype=torch.float32, device=x.device)
+    build.launch(build.function("edge_mlp", "edge_mlp_proj", _PROJ_ARGS),
+                 x.device, x.data_ptr(), w_diff.data_ptr(), P.data_ptr(),
+                 B * N, H, F1)
+    return P[..., :F1]
+
+
+def edge_mlp_node_grads(x: torch.Tensor, dzs: torch.Tensor,
+                        w_diff: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dW_diff)`` from the per-node sums of dz0 by the kernels that
+    end the backward (``node_grads_torch`` on the CPU)."""
+    if build.on_cpu("edge_mlp_node_grads", x):
+        return node_grads_torch(x, dzs, w_diff)
+    B, N, H = x.shape
+    F1 = w_diff.shape[1]
+    x, dzs, w_diff = (t.detach().contiguous() for t in (x, dzs, w_diff))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((B, N, H), **f32)
+    dw_diff = torch.empty((H, F1), **f32)
+    partial = torch.empty((_layout(B, N, 1, F1)[2], H * F1),
+                          **f32)
+    build.launch(build.function("edge_mlp", "edge_mlp_node_grads",
+                                _NODE_ARGS), x.device,
+                 dzs.data_ptr(), x.data_ptr(), w_diff.data_ptr(),
+                 dx.data_ptr(), partial.data_ptr(), dw_diff.data_ptr(),
+                 B * N, H, F1)
+    return dx, dw_diff
 
 
 def edge_mlp_fwd(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
@@ -69,7 +145,9 @@ def edge_mlp_fwd(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
     """``(agg0, agg1, stats)`` of the edge messages (see
     ops/edge_mlp.py:edge_mlp_fwd_torch): ``a [B, N, F1]``, ``x [B, N, H]``,
     ``nbr`` ``[B, N, K]``, ``w_diff [H, F1]``, ``w1 [F1, H2]``, ``b1
-    [H2]``, all f32 but the int32 indices and bool mask."""
+    [H2]``, all f32 but the int32 indices and bool mask.  On the card: the
+    per-node first layer, the edge kernel, and the block-ordered sum of its
+    statistics partials."""
     if build.on_cpu("edge_mlp_fwd", x):
         return edge_mlp_fwd_torch(a, x, nbr, w_diff, w1, b1, aggr)
     args = (a, x, w_diff, w1, b1)
@@ -80,16 +158,19 @@ def edge_mlp_fwd(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
     a, x, w_diff, w1, b1, idx, mask = (
         t.detach().contiguous() for t in args + (nbr.idx, nbr.mask))
     dev = x.device
-    agg0 = torch.empty((B, N, H2), dtype=torch.float32, device=dev)
+    F1s, groups = _layout(B, N, K, F1)[:2]
+    f32 = dict(dtype=torch.float32, device=dev)
+    P = torch.empty((B, N, F1s), **f32)
+    agg0 = torch.empty((B, N, H2), **f32)
     agg1 = torch.empty_like(agg0) if aggr == "max" else None
-    partial = torch.empty((_num_blocks(B, N), 2, H2), dtype=torch.float32,
-                          device=dev)
-    stats = torch.empty((2, H2), dtype=torch.float32, device=dev)
+    partial = torch.empty((groups, 2, H2), **f32)
+    stats = torch.empty((2, H2), **f32)
     build.launch(build.function("edge_mlp", "edge_mlp_fwd", _FWD_ARGS), dev,
                  a.data_ptr(), x.data_ptr(), idx.data_ptr(), mask.data_ptr(),
                  w_diff.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                 agg0.data_ptr(), agg1.data_ptr() if agg1 is not None
-                 else None, partial.data_ptr(), stats.data_ptr(),
+                 P.data_ptr(), agg0.data_ptr(),
+                 agg1.data_ptr() if agg1 is not None else None,
+                 partial.data_ptr(), stats.data_ptr(),
                  B, N, K, H, F1, H2, int(aggr == "max"))
     edge_mlp_fwd.launches += 1
     return agg0, agg1, stats
@@ -106,9 +187,11 @@ def edge_mlp_bwd(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
     """Gradients of ``edge_mlp_fwd`` (see ops/edge_mlp.py:edge_mlp_bwd_torch)
     from the forward's inputs and outputs (``agg0``, ``agg1``: the tie
     references of 'max') and the cotangents ``g0``, ``g1``, ``gst``.  On the
-    card: the edge kernel, the block-ordered sum of its weight-gradient
-    partials, and the pass that sums the per-slot x_j gradients onto their
-    sources through the reverse index of ``reverse_slots``."""
+    card: the per-node first layer again, the edge kernel (da, dW1, db1 and
+    each valid slot's dz0 row), the sum of those rows onto their sources
+    through the reverse index (``reverse_index``: dzs), the per-node
+    products dx and dW_diff, and the block-ordered sum of the
+    weight-gradient partials."""
     if build.on_cpu("edge_mlp_bwd", x):
         return edge_mlp_bwd_torch(a, x, nbr, w_diff, w1, b1, aggr, agg0, agg1,
                                   g0, g1, gst)
@@ -128,28 +211,32 @@ def edge_mlp_bwd(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
     if maxmode:
         agg1, g1 = agg1.detach().contiguous(), g1.detach().contiguous()
     dev = x.device
+    F1s, groups, nodeblk, _ = _layout(B, N, K, F1)
     f32 = dict(dtype=torch.float32, device=dev)
+    order, offsets = reverse_index(Neighborhood(idx, mask))
+    P = torch.empty((B, N, F1s), **f32)
+    dz0 = torch.empty((B, N, K, F1s), **f32)
+    partial_e = torch.empty((groups, F1 * H2 + H2), **f32)
+    partial_n = torch.empty((nodeblk, H * F1), **f32)
     da = torch.empty((B, N, F1), **f32)
-    dxj = torch.empty((B, N, K, H), **f32)
+    dzs = torch.empty((B, N, F1), **f32)
     dx = torch.empty((B, N, H), **f32)
     dw_diff = torch.empty((H, F1), **f32)
     dw1 = torch.empty((F1, H2), **f32)
     db1 = torch.empty((H2,), **f32)
-    partial = torch.empty((_num_blocks(B, N), H * F1 + F1 * H2 + H2), **f32)
     build.launch(build.function("edge_mlp", "edge_mlp_bwd", _BWD_ARGS), dev,
                  a.data_ptr(), x.data_ptr(), idx.data_ptr(), mask.data_ptr(),
                  w_diff.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                  agg0.data_ptr(), agg1.data_ptr() if maxmode else None,
                  g0.data_ptr(), g1.data_ptr() if maxmode else None,
-                 gst.data_ptr(), da.data_ptr(), dxj.data_ptr(),
-                 dw_diff.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-                 partial.data_ptr(), B, N, K, H, F1, H2, int(maxmode))
-    order, offsets = reverse_slots(nbr)
-    build.launch(build.function("edge_mlp", "edge_mlp_dx", _DX_ARGS), dev,
-                 dxj.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-                 dx.data_ptr(), B, N, K, H)
+                 gst.data_ptr(), order.data_ptr(), offsets.data_ptr(),
+                 P.data_ptr(), dz0.data_ptr(),
+                 partial_e.data_ptr(), partial_n.data_ptr(), da.data_ptr(),
+                 dzs.data_ptr(), dx.data_ptr(), dw_diff.data_ptr(),
+                 dw1.data_ptr(), db1.data_ptr(), B, N, K, H, F1, H2,
+                 int(maxmode))
     edge_mlp_bwd.launches += 1
-    return EdgeMLPGrads(da, dx, dxj, dw_diff, dw1, db1)
+    return EdgeMLPGrads(da, dx, dzs, dw_diff, dw1, db1)
 
 
 edge_mlp_bwd.launches = 0
@@ -157,8 +244,8 @@ edge_mlp_bwd.launches = 0
 
 class EdgeMLP(torch.autograd.Function):
     """``edge_mlp_fwd`` with ``edge_mlp_bwd`` as its backward, on either
-    device: ``(agg0, agg1 or None, stats)``.  x gets the per-slot gradients
-    summed onto their sources; its gradient through ``a`` (and that of the
+    device: ``(agg0, agg1 or None, stats)``.  x gets the gradient through
+    its gathered rows (``dzs·W_diffᵀ``); its gradient through ``a`` (and that of the
     layer's W_self and b0) is autograd's, outside this function."""
 
     @staticmethod

@@ -21,9 +21,11 @@ The backward (``edge_mlp_bwd_torch``, the kernel ``edge_mlp_bwd``) is
 written out as the TPU kernel's ``_bwd_kernel`` computes it: it recomputes
 the messages, splits a max or min cotangent evenly among the slots that
 tie with the forward's result, folds in the statistics' cotangent, and
-returns the gradients of a, the per-slot x_j, W_diff, W1 and b1.  The
-forward gathers x_j itself, so the gather's adjoint, summing each slot's
-x_j gradient back onto its source row, is part of the backward here.
+returns the gradients of a, x, W_diff, W1 and b1.  The first layer is
+linear in x_j, so its gradients are products per node, not per edge: with
+``D[j] = Σ dz0`` over the valid slots that gather row j (the gather's
+adjoint, ``slot_sum_torch``), ``dx = D·W_diffᵀ`` and ``dW_diff = Xᵀ·D``.
+``D`` is returned too (``dzs``).
 """
 
 from __future__ import annotations
@@ -36,13 +38,28 @@ from deepmetv2_tpu_torch.data.batching import Neighborhood
 from deepmetv2_tpu_torch.nn.core import elu
 from deepmetv2_tpu_torch.ops.segment import gather_neighbors
 
-MAX_DIM = 128   # csrc/edge_mlp.cu: H, F1 and H2 each at most 128
+MAX_DIM = 128   # csrc/edge_mlp.cu: K, H, F1 and H2 each at most 128
 
 
 def supported(k: int, h: int, f1: int, h2: int) -> bool:
-    """The widths and slot counts the kernel takes (csrc/edge_mlp.cu): at
-    least one slot, and H, F1, H2 each in 1..MAX_DIM."""
-    return k >= 1 and all(1 <= d <= MAX_DIM for d in (h, f1, h2))
+    """The widths and slot counts the kernel takes (csrc/edge_mlp.cu): K,
+    H, F1 and H2 each in 1..MAX_DIM (a node's slots fit one edge tile)."""
+    return all(1 <= d <= MAX_DIM for d in (k, h, f1, h2))
+
+
+def proj_torch(x: torch.Tensor, w_diff: torch.Tensor) -> torch.Tensor:
+    """The first layer's per-node term ``P = x·W_diff [B, N, F1]``."""
+    return torch.matmul(x, w_diff)
+
+
+def node_grads_torch(x: torch.Tensor, dzs: torch.Tensor,
+                     w_diff: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first layer's gradients from the per-node sums ``dzs [B, N,
+    F1]`` of dz0: ``(dx = dzs·W_diffᵀ [B, N, H], dW_diff = Xᵀ·dzs [H,
+    F1])``."""
+    return (torch.matmul(dzs, w_diff.t()),
+            torch.einsum("bnh,bnf->hf", x, dzs))
 
 
 def messages_torch(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
@@ -87,14 +104,14 @@ def delu(z: torch.Tensor) -> torch.Tensor:
 
 
 class EdgeMLPGrads(NamedTuple):
-    """The backward's outputs: ``da [B, N, F1]``, ``dx [B, N, H]`` (the
-    per-slot gradients summed onto their source rows), ``dxj [B, N, K, H]``
-    (0 at masked slots), ``dw_diff [H, F1]``, ``dw1 [F1, H2]``, ``db1
-    [H2]``."""
+    """The backward's outputs: ``da [B, N, F1]``, ``dx [B, N, H]``, ``dzs
+    [B, N, F1]`` (each row's sum of the first layer's pre-activation
+    gradients dz0 over the valid slots that gather it), ``dw_diff [H,
+    F1]``, ``dw1 [F1, H2]``, ``db1 [H2]``."""
 
     da: torch.Tensor
     dx: torch.Tensor
-    dxj: torch.Tensor
+    dzs: torch.Tensor
     dw_diff: torch.Tensor
     dw1: torch.Tensor
     db1: torch.Tensor
@@ -105,7 +122,8 @@ def reverse_slots(nbr: Neighborhood) -> Tuple[torch.Tensor, torch.Tensor]:
     onto their sources without atomics: ``(order [B, N·K] int32, offsets
     [B, N + 1] int32)`` where ``order[b, offsets[b, j]:offsets[b, j + 1]]``
     are the flat slots ``i·K + k`` whose valid entry points at j, in
-    ascending order (a stable sort of the valid slots by target)."""
+    ascending order (a stable sort of the valid slots by target).  The
+    plain version of ops/cuda/edge_mlp.py:reverse_index."""
     B, N, K = nbr.idx.shape
     key = torch.where(nbr.mask, nbr.idx.to(torch.int64),
                       torch.full_like(nbr.idx, N, dtype=torch.int64))
@@ -118,16 +136,16 @@ def reverse_slots(nbr: Neighborhood) -> Tuple[torch.Tensor, torch.Tensor]:
     return order.to(torch.int32), offsets.to(torch.int32)
 
 
-def slot_sum_torch(dxj: torch.Tensor, nbr: Neighborhood) -> torch.Tensor:
-    """``dx[b, j] = Σ dxj[b, i, k]`` over the valid slots (i, k) with
+def slot_sum_torch(ds: torch.Tensor, nbr: Neighborhood) -> torch.Tensor:
+    """``out[b, j] = Σ ds[b, i, k]`` over the valid slots (i, k) with
     ``idx[b, i, k] = j``: the adjoint of the neighbour gather."""
-    B, N, K, H = dxj.shape
+    B, N, K, C = ds.shape
     rows = (nbr.idx.to(torch.int64)
-            + N * torch.arange(B, device=dxj.device)[:, None, None])
+            + N * torch.arange(B, device=ds.device)[:, None, None])
     m = nbr.mask.reshape(-1)
-    dx = torch.zeros((B * N, H), dtype=dxj.dtype, device=dxj.device)
-    dx.index_add_(0, rows.reshape(-1)[m], dxj.reshape(-1, H)[m])
-    return dx.reshape(B, N, H)
+    out = torch.zeros((B * N, C), dtype=ds.dtype, device=ds.device)
+    out.index_add_(0, rows.reshape(-1)[m], ds.reshape(-1, C)[m])
+    return out.reshape(B, N, C)
 
 
 def edge_mlp_bwd_torch(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
@@ -142,7 +160,7 @@ def edge_mlp_bwd_torch(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
     the slots whose recomputed message equals the forward's ``agg0`` (or
     ``agg1``) share its cotangent evenly; the statistics' cotangent reaches
     every valid edge as ``gst[0] + 2·h·gst[1]``."""
-    xj, z0, e0, z1, h = messages_torch(a, x, nbr, w_diff, w1, b1)
+    _, z0, e0, z1, h = messages_torch(a, x, nbr, w_diff, w1, b1)
     m = nbr.mask[..., None]
     zero = torch.zeros_like(h)
     if aggr == "max":
@@ -161,10 +179,9 @@ def edge_mlp_bwd_torch(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
     dw1 = torch.einsum("bnkf,bnko->fo", e0, dz1)
     db1 = dz1.sum(dim=(0, 1, 2))
     dz0 = torch.matmul(dz1, w1.t()) * delu(z0)
-    dw_diff = torch.einsum("bnkh,bnkf->hf", xj, dz0)
-    dxj = torch.matmul(dz0, w_diff.t())
-    return EdgeMLPGrads(dz0.sum(dim=2), slot_sum_torch(dxj, nbr),
-                        dxj, dw_diff, dw1, db1)
+    dzs = slot_sum_torch(dz0, nbr)
+    dx, dw_diff = node_grads_torch(x, dzs, w_diff)
+    return EdgeMLPGrads(dz0.sum(dim=2), dx, dzs, dw_diff, dw1, db1)
 
 
 def bn_combine(agg0: torch.Tensor, agg1: Optional[torch.Tensor],

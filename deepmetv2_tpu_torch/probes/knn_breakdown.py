@@ -11,22 +11,21 @@ synthetic 2000, seed 42, batch 40, N=2048).  A cut variant's outputs are
 wrong by construction: only its time is read, and the difference from
 ``full`` is the cost of the part it cuts.  ``full`` (the shipped source)
 and ``rows_16`` must equal the wrapper's outputs bit for bit.  Prints one
-JSON line per variant, then the card's name and power limit.  It needs a CUDA GPU and ``nvcc``; it writes only under
-``build/kernels/probe/`` in the checkout.
+JSON line per variant, then the card's name and power limit.  It needs a
+CUDA GPU and ``nvcc``; it writes only under ``build/kernels/probe/`` in the
+checkout.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
-import subprocess
-import sys
 from pathlib import Path
 from typing import Dict, List, Tuple
 
 import torch
 
-from deepmetv2_tpu_torch.ops.cuda import build
+from deepmetv2_tpu_torch.probes import common
 
 REPO = Path(__file__).resolve().parents[2]
 DRN_CKPTS = REPO / "ckpts_syn_drn"
@@ -75,37 +74,8 @@ EXACT = ("full", "rows_16")   # variants that compute the whole function
 
 
 def variant_source(name: str) -> str:
-    """``csrc/knn_und.cu`` with the variant's replacements; raises if one
-    no longer matches the source."""
-    src = (build.CSRC / "knn_und.cu").read_text()
-    for old, new in VARIANTS[name]:
-        if src.count(old) != 1:
-            raise ValueError(f"knn_breakdown: variant {name}: its cut "
-                             f"{old.strip()[:50]!r} does not match the source")
-        src = src.replace(old, new)
-    return src
-
-
-def build_variants() -> Dict[str, Path]:
-    """Compile every variant, one ``nvcc`` each, all at once."""
-    out_dir = build.BUILD_DIR / "probe"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in VARIANTS:
-        cu = out_dir / f"knn_{name}.cu"
-        cu.write_text(variant_source(name))
-        lib = out_dir / f"libknn_{name}.so"
-        procs[name] = (subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"knn_breakdown: {name} failed to build:\n{log}")
-        libs[name] = lib
-    return libs
+    """``csrc/knn_und.cu`` with the variant's replacements."""
+    return common.variant_source("knn_und", VARIANTS, name)
 
 
 def probe_inputs(device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -131,19 +101,6 @@ def probe_inputs(device) -> Tuple[torch.Tensor, torch.Tensor]:
     return h.contiguous(), batch.mask.contiguous()
 
 
-def _ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
-
-
 def run(device, reps: int = 20) -> Dict[str, Dict[str, float]]:
     """Per variant: ``knn_kth`` and ``knn_extract`` ms on the probe's
     inputs.  Raises if an ``EXACT`` variant differs from the wrapper's
@@ -157,7 +114,8 @@ def run(device, reps: int = 20) -> Dict[str, Dict[str, float]]:
     P, I = ctypes.c_void_p, ctypes.c_int
     stream = torch.cuda.current_stream(device).cuda_stream
     out = {}
-    for name, path in build_variants().items():
+    libs = common.build_variants("knn_und", VARIANTS)
+    for name, path in libs.items():
         lib = ctypes.CDLL(str(path))
         kth, ext = lib.knn_kth, lib.knn_extract
         kth.argtypes = [P] * 6 + [I] * 4 + [P]
@@ -190,26 +148,19 @@ def run(device, reps: int = 20) -> Dict[str, Dict[str, float]]:
                         (rel, rel0))):
                 raise AssertionError(f"knn_breakdown: variant {name} "
                                      "differs from the wrapper's kernels")
-        out[name] = {"kth_ms": _ms(run_kth, reps),
-                     "extract_ms": _ms(run_ext, reps)}
+        out[name] = {"kth_ms": common.ms(run_kth, reps),
+                     "extract_ms": common.ms(run_ext, reps)}
     return out
 
 
 def main() -> int:
-    if not torch.cuda.is_available():
-        print("knn_breakdown: no CUDA GPU (torch.cuda.is_available() is "
-              "False)", file=sys.stderr)
+    device = common.cuda_device("knn_breakdown")
+    if device is None:
         return 1
-    device = torch.device("cuda:0")
-    torch.cuda.set_device(device)
     for name, row in run(device).items():
         print(json.dumps(dict(variant=name, shape=[BATCH, 2048, 64], **row)),
               flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "nvidia_smi": smi}), flush=True)
+    common.print_device()
     return 0
 
 

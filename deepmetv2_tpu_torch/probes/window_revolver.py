@@ -10,13 +10,12 @@ makes eta-sorted synthetic inputs (events of N−256 to N−1 candidates, the
 halo their eta order needs, c = x·W_diff of seeded normal x and W),
 asserts that both kernels and the plain version agree bit for bit, and
 prints one JSON line per shape with both kernels' times (CUDA events) and
-the speedup, then the card.  It needs a CUDA GPU.
+the speedup, then the card's name and power limit.  It needs a CUDA GPU.
 """
 
 from __future__ import annotations
 
 import json
-import sys
 from typing import Dict, Tuple
 
 import numpy as np
@@ -27,6 +26,7 @@ from deepmetv2_tpu_torch.data.sorting import required_halo, sort_by_eta
 from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import (
     PAD_POS, window_max, window_max_pipelined)
 from deepmetv2_tpu_torch.ops.window import window_max_torch
+from deepmetv2_tpu_torch.probes import common
 
 SHAPES = ((8, 2048, 32), (8, 512, 32))
 R = 0.4
@@ -56,19 +56,6 @@ def probe_inputs(B: int, N: int, H: int, seed: int, device
     return torch.matmul(x, w[H:]), pos, halo
 
 
-def _ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
-
-
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
     # +0.0 turns -0.0 into +0.0, so only the sign of a zero is forgiven
     return torch.equal((a + 0.0).view(torch.int32), (b + 0.0).view(torch.int32))
@@ -88,8 +75,9 @@ def run(device, reps: int = 50) -> Dict[str, Dict]:
         torch.cuda.synchronize()
         if not (_same(pipe, base) and _same(pipe, plain)):
             raise AssertionError(f"window_max_pipelined differs at {B}x{N}x{H}")
-        t_base = _ms(lambda: window_max(c, pos, r2, halo), reps)
-        t_pipe = _ms(lambda: window_max_pipelined(c, pos, r2, halo), reps)
+        t_base = common.ms(lambda: window_max(c, pos, r2, halo), reps)
+        t_pipe = common.ms(lambda: window_max_pipelined(c, pos, r2, halo),
+                           reps)
         out[f"{B}x{N}x{H}"] = {"halo": halo, "base_ms": t_base,
                                "pipelined_ms": t_pipe,
                                "speedup": t_base / t_pipe,
@@ -98,14 +86,12 @@ def run(device, reps: int = 50) -> Dict[str, Dict]:
 
 
 def main() -> int:
-    if not torch.cuda.is_available():
-        print("window_revolver: no CUDA GPU (torch.cuda.is_available() is "
-              "False)", file=sys.stderr)
+    device = common.cuda_device("window_revolver")
+    if device is None:
         return 1
-    device = torch.device("cuda:0")
     for shape, row in run(device).items():
         print(json.dumps(dict(shape=shape, **row)), flush=True)
-    print(json.dumps({"device": torch.cuda.get_device_name(0)}), flush=True)
+    common.print_device()
     return 0
 
 

@@ -141,13 +141,15 @@ def test_edge_pass_outputs():
 
 
 def test_supported_shapes():
-    """The kernel's own limits: any node count, widths up to MAX_DIM, at
-    least one slot."""
+    """The kernel's own limits: any node count, widths up to MAX_DIM, from
+    one slot up to MAX_DIM slots (a node's slots fit one edge tile)."""
     assert te.supported(32, 64, 96, 64)
     assert te.supported(32, 60, 90, 100)              # no multiple of 8
     assert te.supported(1, 128, 128, 128)
     assert not te.supported(0, 64, 96, 64)            # no slot
     assert not te.supported(32, 64, 256, 64)          # wider than the kernel
+    assert te.supported(128, 64, 96, 64)
+    assert not te.supported(129, 64, 96, 64)          # more slots than a tile
 
 
 # ------------------------------------------------------------ the backward
@@ -309,3 +311,93 @@ def test_slot_sum_and_mirror():
     gathered = batched_take(d2.reshape(B, N * 2, H), flat).sum(dim=2)
     np.testing.assert_allclose(te.slot_sum_torch(d2, sym).numpy(),
                                gathered.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def _hub_lists():
+    """The knn hub case's lists (a hub past the cap: not symmetric)."""
+    from deepmetv2_tpu_torch.ops.cuda.knn_und import knn_und_graph
+
+    x, _, _, mlp, *_ = _setup(B=2, N=128, K=8, H=8, seed=8)
+    x[:, :60] *= 0.05
+    x[:, 0] = 0.0
+    nbr, _, _ = knn_und_graph(torch.as_tensor(x),
+                              torch.ones(2, 128, dtype=torch.bool), k=4, cap=8)
+    return x, nbr, mlp
+
+
+def _per_edge_grads(a, x, nbr, w_diff, w1, b1, aggr, g0, g1, gst):
+    """Autograd of the per-edge formulation (x_j gathered per slot, every
+    product per edge) in the inputs' dtype: the gradients of a, x, W_diff,
+    W1, b1 and the per-slot dz0 ``[B, N, K, F1]`` (0 at masked slots)."""
+    from deepmetv2_tpu_torch.nn.core import elu
+
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (a, x, w_diff, w1, b1)]
+    a, x, w_diff, w1, b1 = leaves
+    z0 = torch.matmul(gather_neighbors(x, nbr), w_diff) + a[:, :, None, :]
+    z0.retain_grad()
+    h = elu(torch.matmul(elu(z0), w1) + b1)
+    m = nbr.mask[..., None]
+    hm = torch.where(m, h, torch.zeros_like(h))
+    loss = ((hm.sum(dim=(0, 1, 2)) * gst[0]).sum()
+            + ((hm * hm).sum(dim=(0, 1, 2)) * gst[1]).sum())
+    if aggr == "max":
+        has = nbr.mask.any(dim=-1)[..., None]
+        inf = torch.full_like(h, float("inf"))
+        for v, g in ((torch.where(m, h, -inf).amax(dim=2), g0),
+                     (torch.where(m, h, inf).amin(dim=2), g1)):
+            loss = loss + torch.where(has, v * g, torch.zeros_like(v)).sum()
+    else:
+        loss = loss + (hm.sum(dim=2) * g0).sum()
+    loss.backward()
+    return [t.grad for t in leaves], z0.grad
+
+
+@pytest.mark.parametrize("aggr", ["add", "mean", "max"])
+@pytest.mark.parametrize("case", ["lists", "hub"])
+def test_edge_mlp_bwd_first_layer_per_node(case, aggr):
+    """The backward's first layer per node: ``dzs`` is the gather's
+    adjoint (``slot_sum_torch``) of the per-slot dz0, and ``dx =
+    dzs·W_diffᵀ``, ``dW_diff = Xᵀ·dzs`` equal the per-edge formulation's
+    gradients (autograd through the per-slot gather), on random lists
+    (duplicate targets in a row, an empty row per event) and on a knn
+    list with a hub past the cap.  In f64 to 1e-10 relative; in f32
+    within the tolerance that holds the port to JAX."""
+    if case == "lists":
+        x, idx, mask, mlp, *_ = _setup(seed=5)
+        nbr = Neighborhood(torch.as_tensor(idx), torch.as_tensor(mask))
+    else:
+        x, nbr, mlp = _hub_lists()
+    B, N, H = x.shape
+    rng = np.random.default_rng(17)
+    w0, b0 = mlp["lin0"]["w"], mlp["lin0"]["b"]
+    H2 = mlp["lin1"]["w"].shape[1]
+    a = x @ (w0[:H] - w0[H:]) + b0
+    g0, g1 = rng.normal(size=(2, B, N, H2))
+    gst = rng.normal(size=(2, H2)) * 1e-2
+    for dtype, rtol, atol in ((torch.float64, 1e-10, 1e-12),
+                              (torch.float32, GRAD_RTOL, GRAD_ATOL)):
+        t = [torch.as_tensor(v, dtype=dtype) for v in
+             (a, x, w0[H:], mlp["lin1"]["w"], mlp["lin1"]["b"], g0, g1, gst)]
+        a_, x_, wd, w1, b1, g0_, g1_, gst_ = t
+        agg0, agg1, _ = te.edge_mlp_fwd_torch(a_, x_, nbr, wd, w1, b1, aggr)
+        gr = te.edge_mlp_bwd_torch(a_, x_, nbr, wd, w1, b1, aggr, agg0, agg1,
+                                   g0_, g1_ if aggr == "max" else None, gst_)
+        ref = [v.double() for v in t[:5]]
+        (da, dx, dwd, dw1, db1), dz0 = _per_edge_grads(
+            ref[0], ref[1], nbr, *ref[2:], aggr, g0_.double(), g1_.double(),
+            gst_.double())
+        dzs = te.slot_sum_torch(dz0, nbr)
+        want = {"da": da, "dx": dx, "dzs": dzs, "dw_diff": dwd, "dw1": dw1,
+                "db1": db1}
+        for name in gr._fields:
+            w = want[name].numpy()
+            np.testing.assert_allclose(
+                getattr(gr, name).double().numpy(), w, rtol=rtol,
+                atol=atol * float(np.abs(w).max()), err_msg=f"{name} {dtype}")
+        # the per-node products of dzs are dx and dW_diff
+        np.testing.assert_allclose(
+            dx.numpy(), (dzs @ ref[2].t()).numpy(), rtol=1e-10, atol=1e-12)
+        np.testing.assert_allclose(
+            dwd.numpy(), torch.einsum("bnh,bnf->hf", ref[1], dzs).numpy(),
+            rtol=1e-10, atol=1e-12)

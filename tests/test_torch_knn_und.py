@@ -384,26 +384,64 @@ def test_cut_matching_dense_branch_matches_jax():
 @pytest.mark.parametrize("tile_c", [128, 256])
 def test_tiled_cut_weights_match_jax(tile_c):
     """The N > 4096 branch's weight matrix, called directly at small N on
-    integer features (every d² exact, so the recomputed relation equals
-    the extraction's in both packages)."""
+    integer features (every d² exact, so the JAX package's recomputed
+    relation equals the extraction's), against the JAX package's."""
     rng = np.random.default_rng(5)
     B, N, H = 2, 256, 16
     h0 = rng.integers(-8, 8, size=(B, N, H)).astype(np.float32)
     hp = rng.integers(-8, 8, size=(B, N, H)).astype(np.float32)
     mask = rng.random((B, N)) < 0.95
-    t, _ = tk.knn_kth_torch(torch.as_tensor(h0), torch.as_tensor(mask), 4)
-    jW = jdg._tiled_cut_weights(jnp.asarray(h0), jnp.asarray(t.numpy()),
+    g = tdg.build_dyn_graph(torch.as_tensor(h0), torch.as_tensor(mask), k=4)
+    jW = jdg._tiled_cut_weights(jnp.asarray(h0), jnp.asarray(g.t.numpy()),
                                 jnp.asarray(hp), jnp.asarray(mask), tile_c)
-    tW = tdg._tiled_cut_weights(torch.as_tensor(h0), t, torch.as_tensor(hp),
-                                torch.as_tensor(mask), tile_c)
+    tW = tdg._tiled_cut_weights(g.rel, torch.as_tensor(hp), tile_c)
     np.testing.assert_array_equal(np.isfinite(tW.numpy()),
                                   np.isfinite(np.asarray(jW)))
     np.testing.assert_allclose(tW.numpy(), np.asarray(jW), rtol=1e-6)
     # and the whole tiled branch gives the rel branch's matching
-    g = tdg.build_dyn_graph(torch.as_tensor(h0), torch.as_tensor(mask), k=4)
     want = tdg.cut_matching(g, torch.as_tensor(hp), torch.as_tensor(mask))
     got = tc.handshake_matching_dense(tW, torch.as_tensor(mask))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("tile_c", [128, 256])
+@pytest.mark.parametrize("frac", [1.0, 0.9])
+def test_tiled_branch_reads_the_extraction_relation(tile_c, frac,
+                                                    monkeypatch):
+    """On normal (non-integer) features, where a d² recomputed in another
+    summation order can fall an ulp past a row's threshold: with
+    DENSE_MATCH_MAX_N lowered below N, the graph build still hands over
+    the extraction's ``rel`` bit for bit, and the matching on its column
+    tiles equals the one on the whole weight matrix, with all rows real and
+    with a 90 % mask (padded rows zero in ``rel``, masked by the
+    matching)."""
+    rng = np.random.default_rng(21)
+    B, N, H = 2, 512, 64
+    h = torch.as_tensor(rng.normal(size=(B, N, H)).astype(np.float32))
+    mask_t = torch.as_tensor(rng.random((B, N)) < frac)
+    hp = torch.as_tensor(rng.normal(size=(B, N, H)).astype(np.float32))
+    g = tdg.build_dyn_graph(h, mask_t, k=16)
+    assert g.rel is not None and int(g.rel.sum()) > 0
+    assert not g.rel[~mask_t].any() and not g.rel.transpose(1, 2)[~mask_t].any()
+    want = tdg.cut_matching(g, hp, mask_t)
+    monkeypatch.setattr(tdg, "DENSE_MATCH_MAX_N", 128)
+    monkeypatch.setattr(tdg, "DENSE_TILE_C", tile_c)
+    g_tiled = tdg.build_dyn_graph(h, mask_t, k=16)
+    assert torch.equal(g_tiled.rel, g.rel)
+    got = tdg.cut_matching(g_tiled, hp, mask_t)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_graph_build_emits_rel_where_the_matching_is_dense():
+    """The extraction hands its relation over wherever the dense matching
+    runs: up to DENSE_MATCH_MAX_N nodes, and above it while B·N² is within
+    DENSE_W_MAX_ELEMS (the tiled branch); past that the list matching
+    needs none."""
+    assert tdg.dense_matching(40, 2048)
+    assert tdg.dense_matching(8, 8192)             # a batch of 8 at 8192
+    assert tdg.dense_matching(1, 4096 + 128)
+    assert not tdg.dense_matching(9, 8192)
+    assert not tdg.dense_matching(2, 65536)
 
 
 def test_cut_matching_ignores_padded_rel_rows():
