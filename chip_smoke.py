@@ -8,15 +8,21 @@ Phases, each printing one line:
   2. build: every CUDA kernel source in csrc/, one nvcc each, in parallel,
      with each source's seconds and edge_mlp.cu's registers and spills per
      kernel;
-  3. kernel: window_max forward against its plain PyTorch version, bitwise,
-     on (a) the evaluation shape, (b) clustered eta with value ties and
-     pairs on the radius boundary, (c) padded nodes and empty events; with
-     the kernel's time, the plain version's and the card's lower bound, at
-     the evaluation shape and at the training shape (cell order, halo 192);
-  4. kernel_bwd: window_max backward against its plain version, bitwise, on
-     the same cases (every tied source takes the full gradient), the
-     gradients of x, w and b through the EdgeConv wrapper against the plain
-     path, and the backward's time at the training shape;
+  3. kernel: window_max forward against its plain PyTorch version, bitwise
+     on every row (padded rows -inf), on (a) the evaluation shape (and
+     through a pos view at an odd float offset), (b)
+     clustered eta with value ties and pairs on the radius boundary, (c)
+     padded nodes and empty events, (d) the training shape's cell-ordered
+     batch on a 0.1 lattice (pairs on the radius across the chunk prune's
+     gaps); with the kernel's time, the plain version's, the card's lower
+     bound and the chunks the prune keeps (window_chunks_needed) against
+     the window's chunks, at the evaluation shape and at the training
+     shape (cell order, halo 192);
+  4. kernel_bwd: window_max backward against its plain version, bitwise on
+     every row (padded rows 0), on the same cases (every tied source takes
+     the full gradient), the gradients of x, w and b through the EdgeConv
+     wrapper against the plain path, and the backward's time and kept
+     chunks at the training shape;
   5. evaluate: the port's evaluate CLI on 2000 synthetic events with the
      committed JAX weights (ckpts_syn/best.ckpt), held to the JAX package's
      validation loss, with the kernels' launches counted;
@@ -247,6 +253,17 @@ def bound(nbytes: int, ops: int):
             t_bytes, t_ops)
 
 
+def window_bytes(pos, H: int, reads: int) -> int:
+    """Bytes a window kernel must move: ``reads`` [B, N, H] inputs at the
+    real rows only (a padded row's are never read), one whole [B, N, H]
+    output (padded rows are written too) and ``pos``."""
+    from deepmetv2_tpu_torch.ops.window import padded_rows
+
+    B, N, _ = pos.shape
+    real = int((~padded_rows(pos)).sum())
+    return 4 * (reads * H * real + B * N * H + pos.numel())
+
+
 def ptxas_table(log: str):
     """Per compiled kernel of a ``-Xptxas -v`` log: its name (demangled
     roughly: the function and its template arguments), registers and spill
@@ -271,78 +288,62 @@ def ptxas_table(log: str):
     return out
 
 
-def padded_pos(etaphi, mask):
-    import torch
-    from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import PAD_POS
+def chunk_counts(pos, halo: int, r2: float):
+    """The window kernels' chunk visits: (kept by the prune,
+    window_chunks_needed; every chunk of every block's window; blocks with
+    a real row), for 32-row blocks and chunks."""
+    from deepmetv2_tpu_torch.ops.window import window_chunks_needed
 
-    return torch.where(mask[..., None], etaphi, torch.full_like(etaphi, PAD_POS))
-
-
-def isolated_pos(etaphi, mask):
-    """Padded rows each at its own far coordinate: they then have no
-    neighbours, which isolates what they cost a kernel."""
-    import torch
-    from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import PAD_POS
-
-    B, N, _ = etaphi.shape
-    far = PAD_POS + 1000.0 * torch.arange(N, device=etaphi.device,
-                                          dtype=torch.float32)
-    return torch.where(mask[..., None], etaphi,
-                       far[None, :, None].expand(B, N, 2))
-
-
-def batch_etaphi(batch):
-    import torch
-
-    phi = torch.atan2(batch.x_cont[..., 1], batch.x_cont[..., 0])
-    return torch.stack([batch.x_cont[..., 3], phi], dim=-1)
-
-
-def train_shape_batch(device):
-    """A cell-sorted batch at the training shape: 8 synthetic events padded
-    to N=2048, in the train CLI's order."""
-    from deepmetv2_tpu_torch.data import collate, synthetic_events, to_device
-    from deepmetv2_tpu_torch.data.sorting import cell_sort_batch
-
-    host = cell_sort_batch(collate(synthetic_events(TRAIN_B, seed=7),
-                                   pad_to=TRAIN_N), r=R)
-    return to_device(host, device)
+    B, N, _ = pos.shape
+    needed = window_chunks_needed(pos, 32, 32, halo, r2)
+    t0 = [32 * t for t in range(-(-N // 32))]
+    per_event = sum(-(-(min(N, t + 32 + halo) - max(0, t - halo)) // 32)
+                    for t in t0)
+    return (int(needed.sum()), B * per_event,
+            int(needed.any(-1).sum()))
 
 
 def kernel_phase(device):
     import numpy as np
     import torch
-    from deepmetv2_tpu_torch.data import collate, synthetic_events, to_device
-    from deepmetv2_tpu_torch.data.sorting import sort_by_eta
     from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import (
         window_edgeconv_linear_cuda, window_max)
-    from deepmetv2_tpu_torch.ops.window import (WindowGraph,
+    from deepmetv2_tpu_torch.ops.window import (WindowGraph, padded_pos,
+                                                padded_rows,
                                                 window_edgeconv_linear,
                                                 window_max_torch)
+    from deepmetv2_tpu_torch.probes.window_breakdown import probe_inputs
 
     rng = np.random.default_rng(0)
     r2 = R ** 2
-    B, N, H, halo = 40, 2048, 32, 128
+    inputs = probe_inputs(device)
+    c_a, pos_a, halo = inputs["eval"]
+    tc, tpos, _ = inputs["train"]
+    B, N, H = c_a.shape
 
     def check(name, c, pos, halo):
-        ones = torch.ones(c.shape[:2], dtype=torch.bool, device=c.device)
+        real = ~padded_rows(pos)
         m = window_max(c, pos, r2, halo)
-        t = window_max_torch(c, pos, ones, r2, halo)
+        t = window_max_torch(c, pos, real, r2, halo)
         torch.cuda.synchronize()
         if not bitwise_equal(m, t):
             fail(f"window_max case {name}: {n_differ(m, t)} entries differ "
                  "from the plain version")
+        if bool((m[~real] != float("-inf")).any()):
+            fail(f"window_max case {name}: a padded row is not -inf")
         fin = torch.isfinite(t)
         return float((m[fin] - t[fin]).abs().max()) if fin.any() else 0.0
 
-    # (a) evaluation shape: an eta-sorted synthetic batch
-    batch = to_device(collate(synthetic_events(B, seed=7), pad_to=N), device)
-    batch, _ = sort_by_eta(batch)
-    etaphi = batch_etaphi(batch)
-    pos_a = padded_pos(etaphi, batch.mask)
-    c_a = torch.as_tensor(rng.normal(size=(B, N, H)).astype(np.float32),
-                          device=device)
+    # (a) evaluation shape: an eta-sorted synthetic batch (the probe's),
+    # and the same through a pos view at an odd float offset (the kernels
+    # read pos as float2; the wrapper copies such a view)
+    mask_a = ~padded_rows(pos_a)
     errs = [check("a", c_a, pos_a, halo)]
+    odd = torch.empty(pos_a.numel() + 1, device=device)[1:].view_as(pos_a)
+    odd.copy_(pos_a)
+    if not bitwise_equal(window_max(c_a, odd, r2, halo),
+                         window_max(c_a, pos_a, r2, halo)):
+        fail("window_max differs on a pos view at an odd float offset")
 
     # (b) clustered eta on a 0.1 lattice (pairs exactly on the radius
     # boundary), values rounded to 0.1 (exact ties), wide halo
@@ -359,9 +360,9 @@ def kernel_phase(device):
     # (c) padded nodes and empty events, through the whole EdgeConv wrapper
     nv = rng.integers(0, N, size=B)
     nv[::7] = 0                                      # empty padded events
-    mask_c = batch.mask & torch.as_tensor(
+    mask_c = mask_a & torch.as_tensor(
         np.arange(N)[None, :] < nv[:, None], device=device)
-    pos_c = padded_pos(etaphi, mask_c)
+    pos_c = padded_pos(pos_a, mask_c)
     errs.append(check("c", c_a, pos_c, halo))
     x = torch.as_tensor(rng.normal(size=(B, N, H)).astype(np.float32),
                         device=device)
@@ -369,7 +370,7 @@ def kernel_phase(device):
                         device=device)
     bias = torch.as_tensor(rng.normal(size=(H,)).astype(np.float32),
                            device=device)
-    g = WindowGraph(etaphi, mask_c, r=R, halo=halo)
+    g = WindowGraph(pos_a, mask_c, r=R, halo=halo)
     with torch.no_grad():
         out_k = window_edgeconv_linear_cuda(x, g, w, bias)
         out_t = window_edgeconv_linear(x, g, w, bias)
@@ -378,38 +379,43 @@ def kernel_phase(device):
     if bool((out_k[~mask_c] != 0).any()):
         fail("window_edgeconv_linear_cuda is not 0 at padded nodes")
 
-    ones = torch.ones(B, N, dtype=torch.bool, device=device)
+    # (d) the training shape's cell-ordered batch with its coordinates on a
+    # 0.1 lattice: pairs exactly on the radius, and chunk boxes whose gap
+    # squares to r2 or just past it, where the prune must keep or may drop
+    tmask = ~padded_rows(tpos)
+    pos_d = padded_pos(torch.round(tpos * 10) / 10, tmask)
+    c_d = torch.as_tensor(rng.normal(size=(TRAIN_B, TRAIN_N, H))
+                          .astype(np.float32), device=device)
+    errs.append(check("d", c_d, pos_d, TRAIN_HALO))
+
     ms = cuda_ms(lambda: window_max(c_a, pos_a, r2, halo), 50)
-    plain_ms = cuda_ms(lambda: window_max_torch(c_a, pos_a, ones, r2, halo), 5)
-    pos_iso = isolated_pos(etaphi, batch.mask)
-    isolated_ms = cuda_ms(lambda: window_max(c_a, pos_iso, r2, halo), 50)
-    pairs, adj = window_work(pos_a, batch.mask, halo, r2)
-    nbytes = 4 * (c_a.numel() + pos_a.numel() + c_a.numel())
+    plain_ms = cuda_ms(lambda: window_max_torch(c_a, pos_a, mask_a, r2, halo),
+                       5)
+    pairs, adj = window_work(pos_a, mask_a, halo, r2)
+    nbytes = window_bytes(pos_a, H, 1)      # c at real rows; m; pos
     ops = 6 * pairs + H * adj     # predicate: 2 sub, 2 mul, add, compare
     bound_ms, bound_by, t_bytes, t_ops = bound(nbytes, ops)
+    kept, chunks, blocks = chunk_counts(pos_a, halo, r2)
 
     # the training shape: cell order, halo 192, 8 events
-    tb = train_shape_batch(device)
-    tpos = padded_pos(batch_etaphi(tb), tb.mask)
-    tc = torch.as_tensor(rng.normal(size=(TRAIN_B, TRAIN_N, H))
-                         .astype(np.float32), device=device)
     t_ms = cuda_ms(lambda: window_max(tc, tpos, r2, TRAIN_HALO), 50)
-    t_iso = isolated_pos(batch_etaphi(tb), tb.mask)
-    t_iso_ms = cuda_ms(lambda: window_max(tc, t_iso, r2, TRAIN_HALO), 50)
-    t_pairs, t_adj = window_work(tpos, tb.mask, TRAIN_HALO, r2)
-    t_bound = bound(4 * (2 * tc.numel() + tpos.numel()),
-                    6 * t_pairs + H * t_adj)
-    say("kernel", name="window_max_fwd", cases="a,b,c bitwise equal",
-        shape=[B, N, H], halo=halo, real_rows=int(batch.mask.sum()),
-        ms=ms, plain_ms=plain_ms, padded_rows_isolated_ms=isolated_ms,
+    t_pairs, t_adj = window_work(tpos, tmask, TRAIN_HALO, r2)
+    t_bound = bound(window_bytes(tpos, H, 1), 6 * t_pairs + H * t_adj)
+    t_kept, t_chunks, t_blocks = chunk_counts(tpos, TRAIN_HALO, r2)
+    say("kernel", name="window_max_fwd", cases="a,b,c,d bitwise equal",
+        shape=[B, N, H], halo=halo, real_rows=int(mask_a.sum()),
+        ms=ms, plain_ms=plain_ms, kept_chunks=kept, window_chunks=chunks,
+        blocks_with_real_rows=blocks,
         bytes=nbytes, window_pairs=pairs, adjacent_pairs=adj, fp32_ops=ops,
         bound_bytes_ms=t_bytes, bound_ops_ms=t_ops,
         train_shape=[TRAIN_B, TRAIN_N, H], train_halo=TRAIN_HALO,
-        train_real_rows=int(tb.mask.sum()), train_ms=t_ms,
-        train_padded_rows_isolated_ms=t_iso_ms, train_window_pairs=t_pairs,
-        train_adjacent_pairs=t_adj, train_bound_ms=t_bound[0])
+        train_real_rows=int(tmask.sum()), train_ms=t_ms,
+        train_kept_chunks=t_kept, train_window_chunks=t_chunks,
+        train_blocks_with_real_rows=t_blocks,
+        train_window_pairs=t_pairs, train_adjacent_pairs=t_adj,
+        train_bound_ms=t_bound[0])
     cases = {"a": (c_a, pos_a, halo), "b": (c_b, pos_b, 192),
-             "c": (c_a, pos_c, halo)}
+             "c": (c_a, pos_c, halo), "d": (c_d, pos_d, TRAIN_HALO)}
     return cases, (x, g, w, bias), {
         "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by}
@@ -420,8 +426,10 @@ def kernel_bwd_phase(device, cases, edge_args):
     import torch
     from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import (
         window_edgeconv_linear_cuda, window_max, window_max_bwd)
-    from deepmetv2_tpu_torch.ops.window import (window_edgeconv_linear,
+    from deepmetv2_tpu_torch.ops.window import (padded_rows,
+                                                window_edgeconv_linear,
                                                 window_max_bwd_torch)
+    from deepmetv2_tpu_torch.probes.window_breakdown import probe_inputs
 
     rng = np.random.default_rng(1)
     r2 = R ** 2
@@ -436,6 +444,8 @@ def kernel_bwd_phase(device, cases, edge_args):
         if not bitwise_equal(dk, dt):
             fail(f"window_max_bwd case {name}: {n_differ(dk, dt)} entries "
                  "differ from the plain version")
+        if bool((dk[padded_rows(pos)] != 0).any()):
+            fail(f"window_max_bwd case {name}: a padded row is not 0")
         errs.append(float((dk - dt).abs().max()))
         # with g = 1 each source counts the queries whose max it equals: a
         # tie gives every tied source a full count, so the total exceeds
@@ -465,33 +475,27 @@ def kernel_bwd_phase(device, cases, edge_args):
         grad_err = max(grad_err, float((k - t).abs().max()))
 
     # the training shape: cell order, halo 192, B=8, N=2048, H=32
-    tb = train_shape_batch(device)
-    etaphi = batch_etaphi(tb)
-    pos = padded_pos(etaphi, tb.mask)
-    H = x.shape[-1]
-    c = torch.as_tensor(rng.normal(size=(TRAIN_B, TRAIN_N, H))
-                        .astype(np.float32), device=device)
+    c, pos, _ = probe_inputs(device)["train"]
+    real = ~padded_rows(pos)
+    H = c.shape[-1]
     m = window_max(c, pos, r2, TRAIN_HALO)
     gr = torch.as_tensor(rng.normal(size=tuple(c.shape)).astype(np.float32),
-                         device=device) * tb.mask[..., None]   # 0 at padding
+                         device=device) * real[..., None]   # 0 at padding
     ms = cuda_ms(lambda: window_max_bwd(c, pos, m, gr, r2, TRAIN_HALO), 50)
     plain_ms = cuda_ms(
         lambda: window_max_bwd_torch(c, pos, m, gr, r2, TRAIN_HALO), 3)
-    pos_iso = isolated_pos(etaphi, tb.mask)
-    m_iso = window_max(c, pos_iso, r2, TRAIN_HALO)
-    iso_ms = cuda_ms(
-        lambda: window_max_bwd(c, pos_iso, m_iso, gr, r2, TRAIN_HALO), 50)
-    pairs, adj = window_work(pos, tb.mask, TRAIN_HALO, r2)
-    nbytes = 4 * (4 * c.numel() + pos.numel())       # c, m, g, dc; pos
+    pairs, adj = window_work(pos, real, TRAIN_HALO, r2)
+    nbytes = window_bytes(pos, H, 3)      # c, m, g at real rows; dc; pos
     ops = 6 * pairs + 2 * H * adj   # predicate; compare and add per feature
     bound_ms, bound_by, t_bytes, t_ops = bound(nbytes, ops)
-    say("kernel_bwd", name="window_max_bwd", cases="a,b,c bitwise equal",
+    kept, chunks, blocks = chunk_counts(pos, TRAIN_HALO, r2)
+    say("kernel_bwd", name="window_max_bwd", cases="a,b,c,d bitwise equal",
         extra_tied_sources=ties, edgeconv_grad_max_abs_err=grad_err,
         shape=[TRAIN_B, TRAIN_N, H], halo=TRAIN_HALO,
-        real_rows=int(tb.mask.sum()), ms=ms, plain_ms=plain_ms,
-        padded_rows_isolated_ms=iso_ms, bytes=nbytes, window_pairs=pairs,
-        adjacent_pairs=adj, fp32_ops=ops, bound_bytes_ms=t_bytes,
-        bound_ops_ms=t_ops)
+        real_rows=int(real.sum()), ms=ms, plain_ms=plain_ms,
+        kept_chunks=kept, window_chunks=chunks, blocks_with_real_rows=blocks,
+        bytes=nbytes, window_pairs=pairs, adjacent_pairs=adj, fp32_ops=ops,
+        bound_bytes_ms=t_bytes, bound_ops_ms=t_ops)
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1761,7 +1765,7 @@ def probe_phase(device):
     import torch
     from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import \
         window_max_pipelined
-    from deepmetv2_tpu_torch.ops.window import window_max_torch
+    from deepmetv2_tpu_torch.ops.window import padded_rows, window_max_torch
     from deepmetv2_tpu_torch.probes import window_revolver
 
     window_max_pipelined.launches = 0
@@ -1771,17 +1775,16 @@ def probe_phase(device):
     c, pos, halo = window_revolver.probe_inputs(B, N, H, seed=N + H,
                                                 device=device)
     r2 = window_revolver.R ** 2
-    ones = torch.ones(B, N, dtype=torch.bool, device=device)
+    real = ~padded_rows(pos)
     got = window_max_pipelined(c, pos, r2, halo)
-    plain = window_max_torch(c, pos, ones, r2, halo)
+    plain = window_max_torch(c, pos, real, r2, halo)
     fin = torch.isfinite(plain)
     if not (torch.equal(torch.isfinite(got), fin) and bitwise_equal(got, plain)):
         fail("window_max_fwd_pipelined differs from the plain version")
     err = float((got[fin] - plain[fin]).abs().max())
-    plain_ms = cuda_ms(lambda: window_max_torch(c, pos, ones, r2, halo), 3)
-    mask = pos[..., 0] < 1e8
-    pairs, adj = window_work(pos, mask, halo, r2)
-    bound_ms, bound_by, _, _ = bound(4 * (2 * c.numel() + pos.numel()),
+    plain_ms = cuda_ms(lambda: window_max_torch(c, pos, real, r2, halo), 3)
+    pairs, adj = window_work(pos, real, halo, r2)
+    bound_ms, bound_by, _, _ = bound(window_bytes(pos, H, 1),
                                      6 * pairs + H * adj)
     first = rows[f"{B}x{N}x{H}"]
     say("probe", name="window_max_fwd_pipelined", shapes=rows,

@@ -23,12 +23,11 @@ from typing import Optional
 import torch
 
 from deepmetv2_tpu_torch.ops.cuda import build
-from deepmetv2_tpu_torch.ops.window import (WindowGraph, combine,
-                                            edgeconv_terms,
-                                            window_max_bwd_torch,
+from deepmetv2_tpu_torch.ops.window import (PAD_POS, WindowGraph, combine,
+                                            edgeconv_terms, padded_pos,
+                                            padded_rows, window_max_bwd_torch,
                                             window_max_torch)
 
-PAD_POS = 1e9   # coordinate of padded rows: never adjacent to a real row
 MAX_H = 128     # the kernels keep ceil(H/32) <= 4 features per lane
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -59,19 +58,26 @@ def _check(name: str, c: torch.Tensor, *others: torch.Tensor) -> None:
                              f"not match c {tuple(c.shape)} on {c.device}")
 
 
+def _pos(pos: torch.Tensor) -> torch.Tensor:
+    """``pos`` contiguous and 8-byte aligned: the kernels read its rows as
+    float2, so a view at an odd float offset is copied."""
+    pos = pos.detach().contiguous()
+    return pos if pos.data_ptr() % 8 == 0 else pos.clone()
+
+
 def window_max(c: torch.Tensor, pos: torch.Tensor, r2: float,
                halo: int) -> torch.Tensor:
     """``m[b,i,:] = max c[b,w,:]`` over w in [i−halo, i+halo] ∩ [0, N) with
     ``(η_i−η_w)² + (φ_i−φ_w)² < r2``; −inf where there is none.  ``pos`` is
-    ``[B, N, 2]`` with padded rows at ``PAD_POS`` (padded rows are adjacent
-    to each other, at distance 0; the caller masks them).  Not
-    differentiable by itself: ``WindowMax`` is."""
+    ``[B, N, 2]`` with padded rows at ``PAD_POS`` (any eta >= ``PAD_POS / 2``
+    marks a row padded, ``padded_rows``): a padded query row gets −inf and
+    a padded source is never selected.  Not differentiable by itself:
+    ``WindowMax`` is."""
     if build.on_cpu("window_max", c):
-        return window_max_torch(c, pos, torch.ones(c.shape[:2], dtype=torch.bool),
-                                r2, halo)
+        return window_max_torch(c, pos, ~padded_rows(pos), r2, halo)
     _check("window_max", c, pos)
     B, N, H = c.shape
-    c, pos = c.detach().contiguous(), pos.detach().contiguous()
+    c, pos = c.detach().contiguous(), _pos(pos)
     out = torch.empty_like(c)
     _launch("window_max_fwd", c, c.data_ptr(), pos.data_ptr(), out.data_ptr(),
             B, N, H, int(halo), float(r2))
@@ -88,11 +94,10 @@ def window_max_pipelined(c: torch.Tensor, pos: torch.Tensor, r2: float,
     two-stage cp.async double buffer (csrc/window_max.cu); the same
     function, bit for bit."""
     if build.on_cpu("window_max_pipelined", c):
-        return window_max_torch(c, pos, torch.ones(c.shape[:2], dtype=torch.bool),
-                                r2, halo)
+        return window_max_torch(c, pos, ~padded_rows(pos), r2, halo)
     _check("window_max_pipelined", c, pos)
     B, N, H = c.shape
-    c, pos = c.detach().contiguous(), pos.detach().contiguous()
+    c, pos = c.detach().contiguous(), _pos(pos)
     out = torch.empty_like(c)
     _launch("window_max_fwd_pipelined", c, c.data_ptr(), pos.data_ptr(),
             out.data_ptr(), B, N, H, int(halo), float(r2))
@@ -107,12 +112,14 @@ def window_max_bwd(c: torch.Tensor, pos: torch.Tensor, m: torch.Tensor,
                    g: torch.Tensor, r2: float, halo: int) -> torch.Tensor:
     """Gradient of ``window_max`` with respect to c (see
     ops/window.py:window_max_bwd_torch): every adjacent source whose value
-    equals its query's max gets that query's full gradient."""
+    equals its query's max gets that query's full gradient; 0 at a padded
+    source, and a padded query contributes nothing."""
     if build.on_cpu("window_max_bwd", c):
         return window_max_bwd_torch(c, pos, m, g, r2, halo)
     _check("window_max_bwd", c, pos, m, g)
     B, N, H = c.shape
-    c, pos, m, g = (t.detach().contiguous() for t in (c, pos, m, g))
+    c, m, g = (t.detach().contiguous() for t in (c, m, g))
+    pos = _pos(pos)
     dc = torch.empty_like(c)
     _launch("window_max_bwd", c, c.data_ptr(), pos.data_ptr(), m.data_ptr(),
             g.data_ptr(), dc.data_ptr(), B, N, H, int(halo), float(r2))
@@ -151,7 +158,6 @@ def window_edgeconv_linear_cuda(
     plain versions on a CPU tensor); the counterpart of
     ``window_edgeconv_linear_pallas``.  0 and no gradient at padded nodes."""
     a, c = edgeconv_terms(x, weight, bias)
-    pos = torch.where(g.mask[..., None], g.etaphi,
-                      torch.full_like(g.etaphi, PAD_POS))
-    m = WindowMax.apply(c, pos, float(g.r) ** 2, g.halo)
+    m = WindowMax.apply(c, padded_pos(g.etaphi, g.mask), float(g.r) ** 2,
+                        g.halo)
     return combine(a, m, g.mask)

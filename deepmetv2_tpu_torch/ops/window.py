@@ -13,6 +13,14 @@ kernels (ops/cuda/edgeconv_window.py), forward and backward: both round
 the predicate the same way, one IEEE operation at a time, a max selects
 an input exactly, and the backward sums in the same order, so kernel and
 plain version agree bit for bit.
+
+Padded rows.  The kernels take no mask: a row is padded when its eta is
+at least ``PAD_POS / 2`` (``padded_rows``; the wrapper puts padded rows at
+``PAD_POS``).  A padded query row gets −inf in the forward and a padded
+source is never selected; in the backward a padded source gets 0 and a
+padded query contributes nothing.  ``window_chunks_needed`` is the
+kernels' eta/phi chunk prune, the oracle of which source chunks they
+visit.
 """
 
 from __future__ import annotations
@@ -22,6 +30,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+
+PAD_POS = 1e9   # coordinate of padded rows: never adjacent to a real row
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +55,19 @@ def adjacent(qe, qp, se, sp, r2: float) -> torch.Tensor:
     return de * de + dp * dp < r2
 
 
+def padded_pos(etaphi: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``[B, N, 2]``: ``etaphi`` at the real rows of ``mask`` and
+    ``PAD_POS`` at the others, the coordinates the kernels take."""
+    return torch.where(mask[..., None], etaphi,
+                       torch.full_like(etaphi, PAD_POS))
+
+
+def padded_rows(pos: torch.Tensor) -> torch.Tensor:
+    """``[B, N]`` bool: the rows of ``pos [B, N, 2]`` whose eta is at least
+    ``PAD_POS / 2`` (the TPU kernel's own test of a padded coordinate)."""
+    return pos[..., 0] >= PAD_POS / 2
+
+
 def window_max_torch(
     c: torch.Tensor,       # [B, N, H]
     pos: torch.Tensor,     # [B, N, 2]
@@ -52,7 +76,9 @@ def window_max_torch(
     halo: int,
 ) -> torch.Tensor:
     """``m[b,i,:] = max c[b,w,:]`` over w in [i−halo, i+halo] ∩ [0, N) with
-    mask[i], mask[w] and adj(i, w); −inf where there is none.
+    mask[i], mask[w] and adj(i, w); −inf where there is none.  With
+    ``mask = ~padded_rows(pos)`` it is the kernel's function: −inf at a
+    padded query row, and a padded source never selected.
 
     Walks the offsets d = −halo..halo over c padded by halo rows of −inf
     on each side: one select and one max of [B, N, H] per offset.  Written
@@ -91,10 +117,13 @@ def window_max_bwd_torch(
     so EVERY tied source gets the full gradient of its query (torch's
     maximum would halve it at each tie).  Where m is −inf (no neighbour)
     it stands as +inf with g = 0, as in the JAX package's
-    ``_window_max_bwd``.  Each source sums its terms in ascending query
+    ``_window_max_bwd``.  Padded rows (``padded_rows``) take no part: a
+    padded source gets 0 whatever m and g hold, and a padded query
+    contributes nothing.  Each source sums its terms in ascending query
     order, which the CUDA kernel repeats, so the two agree bit for bit."""
     B, N, H = c.shape
     eta, phi = pos[..., 0], pos[..., 1]
+    real = ~padded_rows(pos)
     finite = torch.isfinite(m)
     m_safe = torch.where(finite, m, torch.full_like(m, float("inf")))
     zero = torch.zeros((), dtype=g.dtype, device=g.device)
@@ -104,10 +133,64 @@ def window_max_bwd_torch(
     for d in range(-w, w + 1):          # query q = s + d, ascending
         s = slice(max(0, -d), min(N, N - d))
         q = slice(s.start + d, s.stop + d)
-        hit = (adjacent(eta[:, q], phi[:, q], eta[:, s], phi[:, s], r2)[..., None]
+        hit = ((adjacent(eta[:, q], phi[:, q], eta[:, s], phi[:, s], r2)
+                & real[:, q] & real[:, s])[..., None]
                & (c[:, s] == m_safe[:, q]))
         dc[:, s] += torch.where(hit, g_safe[:, q], zero)
     return dc
+
+
+def window_chunks_needed(pos: torch.Tensor, rows: int, chunk: int, halo: int,
+                         r2: float) -> torch.Tensor:
+    """``[B, ceil(N/rows), n_chunks]`` bool: the kernels' eta/phi chunk
+    prune.  Block t holds the rows [t·rows, (t+1)·rows) ∩ [0, N); its window
+    [lo, hi) = [t·rows − halo, (t+1)·rows + halo) ∩ [0, N) is cut into
+    chunks of ``chunk`` rows from lo, and n_chunks is the most any block
+    has.  A chunk is needed when the block and the chunk both hold a real
+    row (``padded_rows``) and their boxes, the ranges of eta and of phi
+    over their real rows, are not apart on either axis.  They are apart on
+    an axis when a gap ``d = lo_far − hi_near`` (one chunk's low end minus
+    the other's high end) has ``d > 0`` and ``d * d >= r2``, both rounded
+    in f32 as the kernels' ``__fsub_rn``/``__fmul_rn`` round them.
+
+    No pair across such a gap is adjacent, so the prune drops no pair:
+    rounding is monotone, so every pair's |de| (or |dp|) is at least d and
+    its square at least d·d >= r2, and adding dp·dp >= 0 cannot round the
+    sum below that.  There is no φ wrap: the metric has none.  The test
+    is symmetric, so it serves the backward (source blocks, query chunks)
+    as well.  Entries past a block's last chunk are False."""
+    B, N, _ = pos.shape
+    dev = pos.device
+    nb = -(-N // rows)
+    t0 = torch.arange(nb, device=dev) * rows
+    lo = (t0 - halo).clamp(min=0)
+    hi = (t0 + rows + halo).clamp(max=N)
+    n_chunks = int(((hi - lo + chunk - 1) // chunk).max())
+    k = torch.arange(n_chunks, device=dev)
+    src = (lo[:, None, None] + chunk * k[:, None]
+           + torch.arange(chunk, device=dev))          # [nb, n_chunks, chunk]
+    qry = t0[:, None] + torch.arange(rows, device=dev)  # [nb, rows]
+    real = ~padded_rows(pos)
+    inf = torch.tensor(float("inf"), dtype=pos.dtype, device=dev)
+
+    def box(idx, inside):
+        """(low [B, ..., 2], high [B, ..., 2], any real [B, ...]) over the
+        last axis of ``idx``."""
+        idx = idx.clamp(max=N - 1)
+        ok = inside & real[:, idx]
+        v = pos[:, idx]
+        return (torch.where(ok[..., None], v, inf).amin(-2),
+                torch.where(ok[..., None], v, -inf).amax(-2), ok.any(-1))
+
+    q_lo, q_hi, q_any = box(qry, qry < N)                  # [B, nb, 2]
+    c_lo, c_hi, c_any = box(src, src < hi[:, None, None])  # [B, nb, nc, 2]
+
+    def apart(lo_far, hi_near):
+        d = lo_far - hi_near
+        return (d > 0) & (d * d >= r2)
+
+    gap = apart(c_lo, q_hi[:, :, None]) | apart(q_lo[:, :, None], c_hi)
+    return q_any[..., None] & c_any & ~gap.any(-1)
 
 
 def edgeconv_terms(x: torch.Tensor, weight: torch.Tensor,

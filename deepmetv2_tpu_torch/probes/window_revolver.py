@@ -8,9 +8,10 @@
 At the probe's two shapes, (B, N, H) = (8, 2048, 32) and (8, 512, 32), it
 makes eta-sorted synthetic inputs (events of N−256 to N−1 candidates, the
 halo their eta order needs, c = x·W_diff of seeded normal x and W),
-asserts that both kernels and the plain version agree bit for bit, and
-prints one JSON line per shape with both kernels' times (CUDA events) and
-the speedup, then the card's name and power limit.  It needs a CUDA GPU.
+asserts that both kernels and the plain version agree bit for bit
+(padded rows −inf), and prints one JSON line per shape with both kernels'
+times (CUDA events) and the speedup, then the card's name and power
+limit.  It needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ import torch
 from deepmetv2_tpu_torch.data import collate, synthetic_events, to_device
 from deepmetv2_tpu_torch.data.sorting import required_halo, sort_by_eta
 from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import (
-    PAD_POS, window_max, window_max_pipelined)
-from deepmetv2_tpu_torch.ops.window import window_max_torch
+    window_max, window_max_pipelined)
+from deepmetv2_tpu_torch.ops.window import (padded_pos, padded_rows,
+                                            window_max_torch)
 from deepmetv2_tpu_torch.probes import common
 
 SHAPES = ((8, 2048, 32), (8, 512, 32))
@@ -46,8 +48,7 @@ def probe_inputs(B: int, N: int, H: int, seed: int, device
     batch, _ = sort_by_eta(to_device(host, device))
     phi = torch.atan2(batch.x_cont[..., 1], batch.x_cont[..., 0])
     etaphi = torch.stack([batch.x_cont[..., 3], phi], dim=-1)
-    pos = torch.where(batch.mask[..., None], etaphi,
-                      torch.full_like(etaphi, PAD_POS))
+    pos = padded_pos(etaphi, batch.mask)
     rng = np.random.default_rng(seed)
     x = torch.as_tensor(rng.normal(size=(B, N, H)).astype(np.float32),
                         device=device) * batch.mask[..., None]
@@ -70,8 +71,7 @@ def run(device, reps: int = 50) -> Dict[str, Dict]:
         r2 = R ** 2
         base = window_max(c, pos, r2, halo)
         pipe = window_max_pipelined(c, pos, r2, halo)
-        plain = window_max_torch(c, pos, torch.ones(c.shape[:2], dtype=torch.bool,
-                                                    device=device), r2, halo)
+        plain = window_max_torch(c, pos, ~padded_rows(pos), r2, halo)
         torch.cuda.synchronize()
         if not (_same(pipe, base) and _same(pipe, plain)):
             raise AssertionError(f"window_max_pipelined differs at {B}x{N}x{H}")
