@@ -28,11 +28,20 @@ Phases, each printing one line:
      validation loss, with the kernels' launches counted;
   6. predict: the port's predict CLI over the same 2000 events;
   7. train_resume: 10 train steps from ckpts_syn/best.ckpt (weights,
-     BatchNorm state, AdamW moments, scheduler), each loss held to the JAX
-     package's;
+     BatchNorm state, AdamW moments, scheduler) through the chained runner
+     (chains of 8 and 2), each loss held to the JAX package's;
+     chain_replay: 24 steps from the same checkpoint eagerly, twice (what
+     the card does run to run), and as 3 chains of 8 (eager warm-up, then
+     a captured CUDA graph replayed twice, the lr changed before the
+     third), every loss, parameter, BatchNorm buffer and AdamW moment and
+     count bitwise equal to the eager run's (or within what the two eager
+     runs differ by), the launches with replays equal to the eager run's,
+     with the graphs, replays and peak memory of both;
   8. train: the port's train CLI, 2 epochs on synthetic 2000 and a resume
-     to 3, with the exact launch counts, the artifacts, and its best.ckpt
-     re-evaluated by the evaluate CLI;
+     to 3, chained and resident by the config's defaults (its "feed:" line
+     checked), with the exact launch counts (replays included), each
+     epoch's seconds, the artifacts, and its best.ckpt re-evaluated by the
+     evaluate CLI;
   9. kernel_knn: the DRN's graph kernels knn_kth and knn_extract against
      their plain versions, bitwise (t, sq, idx, d2v, rel), on (a) the
      DRN's own round-1 features of an evaluation batch (B=40, N=2048,
@@ -71,13 +80,20 @@ Phases, each printing one line:
      loss held to GOLDEN_DRN_TRAIN_LOSSES by the rule stated there, and the
      first step's loss, gradients, parameters and BatchNorm buffers held
      to the port's plain train step in f64 on the same graphs;
+     chain_replay: as in 7, for the DRN (batch 16, clip 10);
  16. drn_train: the train CLI with --model drn, 2 epochs and a resume to
-     3, exact launch counts of all four DRN kernels, the artifacts, and
-     best.ckpt re-evaluated by the evaluate CLI;
+     3, chained and resident (its "feed:" line checked), exact launch
+     counts of all four DRN kernels (replays included), each epoch's
+     seconds, the artifacts, and best.ckpt re-evaluated by the evaluate
+     CLI;
  17. probe: the pipelined window forward (the TPU revolver probe's port)
      bitwise against window_max_fwd and the plain version at both probe
      shapes, with times;
- 18. profile: one DRN train step's device time by kernel;
+ 18. profile: one DRN train step's device time by kernel; feed: for each
+     family, one epoch of synthetic 2000 under per-step dispatch with a
+     copy of each batch and under chained resident replay: ms per step,
+     device ms per step and the idle share, beside the card's name and
+     power limit;
 then a JSON line of every ported kernel and, last, the device JSON line.
 Any failed check exits non-zero before the last line.  Writes only under
 build/ in the checkout.
@@ -95,6 +111,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+CARD = ""    # the card's name and power limit from nvidia-smi (main)
 GOLDEN_LOSS = 1.0319761037826538   # JAX package, cli.evaluate --synthetic 2000
 LOSS_RTOL = 1e-4
 # JAX package, make_train_step from ckpts_syn/best.ckpt on the first 10
@@ -500,14 +517,14 @@ def kernel_bwd_phase(device, cases, edge_args):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def step_profile(step, reps: int = 5):
+def step_profile(step, reps: int = 5, cpu: bool = True):
     """(device ms per step, kernels per step, top kernels) of ``step``
-    under torch.profiler."""
+    under torch.profiler (``cpu=False``: the device's activity only)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
@@ -574,7 +591,10 @@ def profile_phase(device, ck: str) -> None:
 
 def train_resume_phase(device) -> None:
     """10 train steps from the committed JAX checkpoint, each loss held to
-    GOLDEN_TRAIN_LOSSES (a lost AdamW count or moment shows at step 2)."""
+    GOLDEN_TRAIN_LOSSES (a lost AdamW count or moment shows at step 2),
+    through the chained runner as chains of 8 and 2 (the first chain of
+    each length runs eagerly: it warms up the graph that a third chain of
+    that length would replay)."""
     import dataclasses
     import itertools
 
@@ -584,8 +604,9 @@ def train_resume_phase(device) -> None:
     from deepmetv2_tpu_torch.models.graph_met import GraphMET
     from deepmetv2_tpu_torch.train.checkpoint import restore_checkpoint
     from deepmetv2_tpu_torch.train.schedule import ReduceLROnPlateau
-    from deepmetv2_tpu_torch.train.step import (make_optimizer,
-                                                make_train_step)
+    from deepmetv2_tpu_torch.train.chain import (make_chained_train_step,
+                                                 stack_batches)
+    from deepmetv2_tpu_torch.train.step import make_optimizer
 
     ck = os.path.join(HERE, "ckpts_syn")
     cfg = load_run_config(ck)
@@ -599,16 +620,33 @@ def train_resume_phase(device) -> None:
     ld = fetch_dataloader(events=synthetic_events(2000, seed=42),
                           batch_size=TRAIN_B, presort_eta=True,
                           presort_mode="cell")["train"]
-    step = make_train_step(cfg)
-    losses = [float(step(model, opt, to_device(b, device)))
-              for b in itertools.islice(iter(ld), len(GOLDEN_TRAIN_LOSSES))]
+    hosts = list(itertools.islice(iter(ld), len(GOLDEN_TRAIN_LOSSES)))
+    runner = make_chained_train_step(cfg)
+    losses = []
+    for chain in (hosts[:8], hosts[8:]):
+        losses += runner(model, opt, to_device(stack_batches(chain),
+                                               device)).tolist()
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, GOLDEN_TRAIN_LOSSES)]
     say("train_resume", epoch=payload["epoch"], adam_count=payload["step"],
-        sched_best=sched.best, losses=losses, golden=GOLDEN_TRAIN_LOSSES,
+        sched_best=sched.best, chains=[8, 2], losses=losses, golden=GOLDEN_TRAIN_LOSSES,
         max_rel_err=max(rel))
     if not max(rel) <= LOSS_RTOL:
         fail(f"resumed train losses are not within {LOSS_RTOL} of the JAX "
              f"package's: {losses}")
+
+
+FEED_LINE = "feed: resident, chain 8, CUDA graphs"   # the config's defaults
+
+
+def check_feed_line(what: str, text: str) -> None:
+    if FEED_LINE not in text.splitlines():
+        fail(f"{what} did not print {FEED_LINE!r}")
+
+
+def epoch_seconds(text: str):
+    """Each "Training epoch" line's wall seconds."""
+    return [float(ln.split("(")[1].split(" s,")[0]) for ln in
+            text.splitlines() if ln.startswith("Training epoch")]
 
 
 def train_phase(work: str):
@@ -637,14 +675,16 @@ def train_phase(work: str):
         sec = time.perf_counter() - t
         text = out.getvalue()
         lines = [ln for ln in text.splitlines()
-                 if ln.startswith(("graph mode", "Training epoch", "- Eval",
-                                   "Restarting"))]
+                 if ln.startswith(("graph mode", "feed:", "Training epoch",
+                                   "- Eval", "Restarting"))]
         say("train", argv=argv, seconds=sec, fwd_launches=window_max.launches,
-            bwd_launches=window_max_bwd.launches, log=lines)
+            bwd_launches=window_max_bwd.launches,
+            epoch_seconds=epoch_seconds(text), log=lines)
         if rc != 0:
             fail(f"train CLI {argv} exited {rc}")
         if f"graph mode: window (halo {TRAIN_HALO}, order cell)" not in text:
             fail(f"train CLI did not print halo {TRAIN_HALO}, order cell")
+        check_feed_line("train CLI", text)
         want_f = epochs * (steps * convs + evals * convs)
         want_b = epochs * steps * convs
         if (window_max.launches, window_max_bwd.launches) != (want_f, want_b):
@@ -1524,7 +1564,7 @@ def drn_train_config(cfg):
 def drn_plain_f64_step(model, opt_state, tcfg, host, rounds):
     """The port's plain DRN train step in f64 on the CPU from ``model`` (a
     CPU copy taken before the step) and ``opt_state`` (the optimizer's
-    state_dict then), on the graphs ``rounds`` [(nbr, cluster, partner)]
+    state then, as ``optimizer_state_to_jax`` writes it), on the graphs ``rounds`` [(nbr, cluster, partner)]
     another run of the step built: they are injected in place of the graph
     build and the matching, whose decisions could differ at near-ties in
     f64.  Returns ``(loss, the model after the step)``; its ``.grad`` holds
@@ -1541,7 +1581,7 @@ def drn_plain_f64_step(model, opt_state, tcfg, host, rounds):
 
     ref = model.to(torch.float64)
     opt = make_optimizer(tcfg, ref)
-    opt.load_state_dict(opt_state)
+    ref.optimizer_state_from_jax(opt_state, opt)
     batch = to_device(host, "cpu")
     batch = batch._replace(x_cont=batch.x_cont.double(), y=batch.y.double())
     graphs, matches = iter(rounds), iter(rounds)
@@ -1573,7 +1613,7 @@ def drn_step_against_f64(model, opt, tcfg, host, device):
     from deepmetv2_tpu_torch.models import drn as tdrn
     from deepmetv2_tpu_torch.train.step import make_drn_train_step
 
-    before = copy.deepcopy(model).cpu(), copy.deepcopy(opt.state_dict())
+    before = copy.deepcopy(model).cpu(), model.optimizer_state_to_jax(opt)
     match = tdrn.cut_matching
     rounds = []
 
@@ -1714,12 +1754,15 @@ def drn_train_phase(work: str):
         torch.cuda.synchronize()
         sec = time.perf_counter() - t
         launches = {k: fn.launches for k, fn in counters.items()}
-        lines = [ln for ln in out.getvalue().splitlines()
-                 if ln.startswith(("drn:", "Training epoch", "- Eval",
-                                   "Restarting"))]
-        say("drn_train", argv=argv, seconds=sec, launches=launches, log=lines)
+        text = out.getvalue()
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith(("drn:", "feed:", "Training epoch",
+                                   "- Eval", "Restarting"))]
+        say("drn_train", argv=argv, seconds=sec, launches=launches,
+            epoch_seconds=epoch_seconds(text), log=lines)
         if rc != 0:
             fail(f"DRN train CLI {argv} exited {rc}")
+        check_feed_line("DRN train CLI", text)
         fwd = epochs * (steps + DRN_REFRESH + evals) * rounds
         want = {k: fwd for k in drn_counters()}
         want["edge_mlp_bwd"] = epochs * steps * rounds
@@ -1815,6 +1858,233 @@ def drn_train_profile(device, model, opt, tcfg) -> None:
         device_idle_share=1 - dev_ms / step_ms, kernels_per_step=n_k, top=top)
 
 
+REPLAY_STEPS, REPLAY_CHAIN, REPLAY_LR = 24, 8, 5e-4
+
+
+def family_setup(device, family: str):
+    """``(fresh, cfg, loader)`` for a train run of ``family`` from its
+    committed checkpoint: ``fresh()`` gives a new ``(model, optimizer)``
+    restored from it (weights, BatchNorm, AdamW state), ``cfg`` the train
+    config, ``loader`` the train loader of synthetic 2000.  GraphMET:
+    ckpts_syn at batch 8, halo 192, cell order (presorted); the DRN:
+    ckpts_syn_drn at batch 16 with its clip (drn_train_config)."""
+    import dataclasses
+
+    from deepmetv2_tpu_torch.cli.common import load_run_config
+    from deepmetv2_tpu_torch.data import fetch_dataloader, synthetic_events
+    from deepmetv2_tpu_torch.models.drn import DRN
+    from deepmetv2_tpu_torch.models.graph_met import GraphMET
+    from deepmetv2_tpu_torch.train.checkpoint import restore_checkpoint
+    from deepmetv2_tpu_torch.train.step import make_optimizer
+
+    events = synthetic_events(2000, seed=42)
+    if family == "drn":
+        ck = os.path.join(HERE, DRN_CKPTS)
+        cfg = drn_train_config(load_run_config(ck))
+        loader = fetch_dataloader(events=events,
+                                  batch_size=DRN_TRAIN_B)["train"]
+    else:
+        ck = os.path.join(HERE, "ckpts_syn")
+        cfg = load_run_config(ck)
+        cfg = dataclasses.replace(cfg, graph=dataclasses.replace(
+            cfg.graph, mode="window", window_halo=TRAIN_HALO, presorted=True))
+        loader = fetch_dataloader(events=events, batch_size=TRAIN_B,
+                                  presort_eta=True,
+                                  presort_mode="cell")["train"]
+
+    def fresh():
+        model = (DRN(cfg.drn, device=device) if family == "drn"
+                 else GraphMET(cfg.model, device=device))
+        opt = make_optimizer(cfg, model)
+        restore_checkpoint(os.path.join(ck, "best.ckpt"), model, opt)
+        return model, opt
+
+    return fresh, cfg, loader
+
+
+def train_state(model, opt):
+    """[(kind, copy of the tensor)]: every parameter ('param') and
+    BatchNorm buffer ('bn'), then each parameter's AdamW moments and step
+    count ('adam')."""
+    out = [("bn" if path[0] == "bn_state" else "param", t.detach().clone())
+           for path, t in model.jax_layout()]
+    for _, t in model._param_paths():
+        out += [("adam", opt.state[t][k].clone())
+                for k in ("exp_avg", "exp_avg_sq", "step")]
+    return out
+
+
+def max_differ(a, b) -> float:
+    """Largest |a − b|, 0.0 where bitwise equal (a zero's sign forgiven)."""
+    import torch
+
+    if a.dtype.is_floating_point:
+        if bitwise_equal(a, b):
+            return 0.0
+    elif torch.equal(a, b):
+        return 0.0
+    return float((a.double() - b.double()).abs().max())
+
+
+def run_differ(a_losses, a_state, b_losses, b_state):
+    """{kind: largest |difference|} between two runs' losses and states."""
+    out = {"loss": max_differ(a_losses, b_losses), "param": 0.0, "bn": 0.0,
+           "adam": 0.0}
+    for (kind, x), (_, y) in zip(a_state, b_state):
+        out[kind] = max(out[kind], max_differ(x, y))
+    return out
+
+
+def chain_replay_phase(device, family: str) -> None:
+    """Replayed chains against eager steps, from the committed checkpoint:
+    REPLAY_STEPS train steps eagerly on one copy, twice (two eager runs
+    from the same state: what the card does run to run), and on another
+    copy through the chained runner in chains of REPLAY_CHAIN (the first
+    chain eager on its side stream, the second captured and replayed, the
+    third replayed on another stack), the lr set to REPLAY_LR before the
+    third chain in every run.  Every loss, parameter, BatchNorm buffer and
+    AdamW moment and step must equal the eager run's bitwise, or, where
+    the two eager runs differ, within the largest difference they show in
+    that kind; the kernels' launches (replays included) must equal the
+    eager run's."""
+    import torch
+    from deepmetv2_tpu_torch.data import to_device
+    from deepmetv2_tpu_torch.ops.cuda import build
+    from deepmetv2_tpu_torch.train.chain import (make_chained_train_step,
+                                                 stack_batches)
+    from deepmetv2_tpu_torch.train.step import (drn_objective,
+                                                graphmet_objective,
+                                                make_train_step,
+                                                set_learning_rate)
+
+    fresh, cfg, loader = family_setup(device, family)
+    hosts = []
+    for b in loader:
+        hosts.append(b)
+        if len(hosts) == REPLAY_STEPS:
+            break
+    batches = [to_device(b, device) for b in hosts]
+    stacks = [to_device(stack_batches(hosts[i:i + REPLAY_CHAIN]), device)
+              for i in range(0, REPLAY_STEPS, REPLAY_CHAIN)]
+    objective = (drn_objective(cfg) if family == "drn"
+                 else graphmet_objective(cfg))
+    lr_at = 2 * REPLAY_CHAIN
+
+    def eager():
+        model, opt = fresh()
+        step = make_train_step(cfg, objective)
+        before = build.launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        for i, b in enumerate(batches):
+            if i == lr_at:
+                set_learning_rate(opt, REPLAY_LR)
+            losses.append(step(model, opt, b))
+        torch.cuda.synchronize()
+        after = build.launch_counts()
+        return (torch.stack(losses), train_state(model, opt),
+                {k: after[k] - before[k] for k in after if after[k] - before[k]},
+                torch.cuda.max_memory_allocated())
+
+    a_losses, a_state, a_launch, a_peak = eager()
+    b_losses, b_state, _, _ = eager()
+    run_to_run = run_differ(a_losses, a_state, b_losses, b_state)
+
+    model, opt = fresh()
+    runner = make_chained_train_step(cfg, family)
+    before = build.launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for c, st in enumerate(stacks):
+        if c * REPLAY_CHAIN == lr_at:
+            set_learning_rate(opt, REPLAY_LR)
+        losses.append(runner(model, opt, st))
+    torch.cuda.synchronize()
+    after = build.launch_counts()
+    c_peak = torch.cuda.max_memory_allocated()
+    c_launch = {k: after[k] - before[k] for k in after if after[k] - before[k]}
+    c_losses = torch.cat(losses)
+    replay = run_differ(a_losses, a_state, c_losses, train_state(model, opt))
+    say("chain_replay", family=family, steps=REPLAY_STEPS, chain=REPLAY_CHAIN,
+        graphs=runner.n_graphs, replays=runner.replays, lr_before_chain_3=
+        REPLAY_LR, eager_run_to_run=run_to_run, replay_against_eager=replay,
+        bitwise=not any(replay.values()), launches=c_launch,
+        eager_launches=a_launch, peak_mb_eager=a_peak / 2 ** 20,
+        peak_mb_graphs=c_peak / 2 ** 20, losses=c_losses.tolist())
+    if (runner.n_graphs, runner.replays) != (1, 2):
+        fail(f"chain_replay {family}: {runner.n_graphs} graphs and "
+             f"{runner.replays} replays, want 1 and 2")
+    for kind, d in replay.items():
+        if not d <= run_to_run[kind]:
+            fail(f"chain_replay {family}: the replayed chains' {kind} differ "
+                 f"from the eager steps' by {d}; two eager runs differ by "
+                 f"{run_to_run[kind]}")
+    if c_launch != a_launch:
+        fail(f"chain_replay {family}: launches {c_launch} with replays, "
+             f"eager {a_launch}")
+
+
+def feed_profile(device, family: str) -> None:
+    """One training epoch of synthetic 2000 from the committed checkpoint
+    under each feed: per-step dispatch with a copy of each batch
+    (chain_steps 1, resident_feed false) and the chained resident replay
+    (chain_steps REPLAY_CHAIN, the epoch staged once).  Each feed runs
+    two epochs first: the epoch's chains have several (shape, length)
+    keys, and a key seen once per epoch is warmed up in the first and
+    captured in the second.  Then one epoch timed by the host clock (ms
+    per step) and one under torch.profiler (the device's kernel and copy
+    time per step); the idle share is 1 − device / wall."""
+    import torch
+    from deepmetv2_tpu_torch.train.chain import make_chained_train_step
+    from deepmetv2_tpu_torch.train.loop import train_one_epoch
+    from deepmetv2_tpu_torch.train.resident import ResidentFeed
+    from deepmetv2_tpu_torch.train.step import (drn_objective,
+                                                graphmet_objective,
+                                                make_train_step)
+
+    fresh, cfg, loader = family_setup(device, family)
+    objective = (drn_objective(cfg) if family == "drn"
+                 else graphmet_objective(cfg))
+    steps = len(loader)
+    for mode in ("per_step_streaming", "chained_resident"):
+        model, opt = fresh()
+        if mode == "chained_resident":
+            step = make_chained_train_step(cfg, family)
+            feed, chain = ResidentFeed(loader, REPLAY_CHAIN, device), REPLAY_CHAIN
+        else:
+            step, feed, chain = make_train_step(cfg, objective), loader, 1
+
+        def epoch():
+            return train_one_epoch(model, opt, step, feed, 0, device,
+                                   verbose=False, chain=chain)
+
+        warm_s = []
+        for _ in range(2):
+            t = time.perf_counter()
+            epoch()
+            warm_s.append(time.perf_counter() - t)
+        graphs = getattr(step, "n_graphs", 0)
+        replays = getattr(step, "replays", 0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        epoch()                       # ends in a host read of its loss
+        wall_ms = 1e3 * (time.perf_counter() - t)
+        replays = getattr(step, "replays", 0) - replays
+        dev_ms, n_k, top = step_profile(epoch, reps=1, cpu=False)
+        if getattr(step, "n_graphs", 0) != graphs:
+            fail(f"feed {family}: graphs were captured after two epochs")
+        say("feed", family=family, mode=mode, chain=chain, steps=steps,
+            card=CARD, warm_epochs_s=warm_s, graphs=graphs,
+            replays_in_epoch=replays, epoch_s=wall_ms / 1e3,
+            ms_per_step=wall_ms / steps, device_ms_per_step=dev_ms / steps,
+            idle_share=1 - dev_ms / wall_ms, kernels_per_step=n_k / steps,
+            top=top[:4])
+        if not dev_ms > 0:
+            fail(f"feed {family} {mode}: the profile saw no device work")
+
+
 def main() -> int:
     import torch
 
@@ -1834,7 +2104,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()
-    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    global CARD
+    CARD = smi[0] if smi else "nvidia-smi: no output"
+    print(CARD, flush=True)
     say("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
@@ -1917,8 +2189,10 @@ def main() -> int:
     if pred_launches != 2 * 50:
         fail(f"predict launched window_max {pred_launches} times, not 100")
 
-    # 7. resume from the JAX checkpoint, held to the JAX losses
+    # 7. resume from the JAX checkpoint, held to the JAX losses; replayed
+    # chains against eager steps
     train_resume_phase(device)
+    chain_replay_phase(device, "graphmet")
 
     # 8. main path: the train CLI
     train_fwd, train_bwd = train_phase(work)
@@ -1944,13 +2218,17 @@ def main() -> int:
     # 15-16. main path: DRN training, resumed from the JAX checkpoint, then
     # the train CLI
     drn_t, drn_opt, drn_tcfg = drn_train_resume_phase(device, drn_cfg)
+    chain_replay_phase(device, "drn")
     drn_train = drn_train_phase(work)
 
     # 17. the revolver probe's kernel
     probe_launches, probe = probe_phase(device)
 
-    # 18. where one DRN train step's time goes
+    # 18. where one DRN train step's time goes; then an epoch of each family
+    # under per-step dispatch and under chained resident replay
     drn_train_profile(device, drn_t, drn_opt, drn_tcfg)
+    feed_profile(device, "graphmet")
+    feed_profile(device, "drn")
 
     def runs(name):
         return drn_eval[name] + drn_pred[name] + drn_train[name]

@@ -13,8 +13,11 @@ order by default), the halo is sized from the order they emit.  The DRN
 (``--model drn``): no presort (it builds its own graphs), ``datanorm`` set
 to 1/std of each feature over the training candidates and the output scale
 to the training set's mean |genMET|, as the JAX CLI does.  AdamW with the
-plateau scheduler trains either on one device; ``--restore_file`` resumes
-from a checkpoint of either package.  The JAX flags of paths not ported
+plateau scheduler trains either on one device, through the config's feed
+(chains of ``chain_steps`` = 8 steps as CUDA graph replays, the epoch
+resident on the device; the line "feed: ..." names it), as the JAX CLI
+has no flag for it; ``--restore_file`` resumes from a checkpoint of
+either package.  The JAX flags of paths not ported
 yet are accepted and exit non-zero with "not ported yet".
 """
 
@@ -31,7 +34,7 @@ from deepmetv2_tpu_torch.config import Config, DataConfig
 from deepmetv2_tpu_torch.data import fetch_dataloader, synthetic_events
 from deepmetv2_tpu_torch.models.drn import DRN
 from deepmetv2_tpu_torch.models.graph_met import GraphMET
-from deepmetv2_tpu_torch.train.loop import fit
+from deepmetv2_tpu_torch.train.loop import feed_line, fit
 from deepmetv2_tpu_torch.train.step import make_optimizer
 
 
@@ -170,6 +173,7 @@ def main(argv=None) -> int:
           f"{'eta (device sort)' if is_drn else sort_mode})")
     print("device:", device,
           torch.cuda.get_device_name(device) if device.type == "cuda" else "")
+    print(feed_line(cfg, device))
 
     gen = torch.Generator().manual_seed(args.seed)
     if is_drn:

@@ -8,11 +8,14 @@ model/data_loader.py:21-111).
   ``bucketed`` groups events by size bucket;
 * window mode may presort each batch on the host (``presort_eta``), in eta
   order or in cell order (``presort_mode``, data/sorting.py);
-* collated host batches are memoized after the first full pass.
+* collated host batches are memoized after the first full pass;
+* ``prefetch_to_device`` is the double-buffered host→device feed of a
+  streamed epoch, ``device_feed`` the plain one of evaluate and predict.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -58,7 +61,12 @@ class METDataset:
 
 
 class PaddedLoader:
-    """Iterates host EventBatches over a subset of a dataset."""
+    """Iterates host EventBatches over a subset of a dataset.  Unshuffled
+    and memoized, it yields the same batches in every epoch
+    (``replays_same_batches``), which lets train/resident.py stage an
+    epoch on the device once."""
+
+    replays_same_batches = True
 
     def __init__(
         self,
@@ -153,6 +161,47 @@ def device_feed(loader, device) -> Iterator[EventBatch]:
     """Host batches → device batches, one at a time."""
     for b in loader:
         yield to_device(b, device)
+
+
+def prefetch_to_device(it, size: int = 2, place=None
+                       ) -> Iterator[EventBatch]:
+    """Double-buffered host→device feed (the JAX package's
+    ``prefetch_to_device``): each host batch (or chain of batches) is
+    copied into pinned host tensors and from there onto the device
+    (``place``, default CUDA) with ``non_blocking`` copies on a side
+    stream, ``size`` batches ahead of the consumer, whose stream waits for
+    a batch's copies before it gets the batch.  On the CPU the batches are
+    only converted."""
+    device = torch.device(place if place is not None else "cuda")
+    if device.type != "cuda":
+        yield from device_feed(it, device)
+        return
+    stream = torch.cuda.Stream(device)
+    pending = collections.deque()
+    for b in it:
+        host = [torch.from_numpy(np.ascontiguousarray(f)).pin_memory()
+                for f in b]
+        with torch.cuda.stream(stream):
+            dev = EventBatch(*(h.to(device, non_blocking=True)
+                               for h in host))
+            done = torch.cuda.Event()
+            done.record(stream)
+        pending.append((dev, done))
+        if len(pending) >= size:
+            yield _ready(*pending.popleft())
+    while pending:
+        yield _ready(*pending.popleft())
+
+
+def _ready(batch: EventBatch, done) -> EventBatch:
+    """``batch`` for the current stream, once its copies are done there;
+    its tensors are marked as used on that stream, so that the allocator
+    does not hand their memory to the copy stream too early."""
+    consumer = torch.cuda.current_stream(batch.x_cont.device)
+    consumer.wait_event(done)
+    for t in batch:
+        t.record_stream(consumer)
+    return batch
 
 
 def fetch_dataloader(

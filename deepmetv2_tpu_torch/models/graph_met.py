@@ -33,9 +33,11 @@ from deepmetv2_tpu_torch.ops.edgeconv import edgeconv
 def pdg_remap(pdg: torch.Tensor, pdgs=(1, 2, 11, 13, 22, 130, 211)
               ) -> torch.Tensor:
     """|pdgId| ∈ {1,2,11,13,22,130,211} → {0..6}; unknown ids (padding
-    zeros included) → 0."""
-    table = torch.as_tensor(pdgs, dtype=pdg.dtype, device=pdg.device)
-    matches = pdg.abs()[..., None] == table
+    zeros included) → 0.  Compared with each id as a Python number: a
+    table tensor would be a host-to-device copy in every step, which a
+    captured CUDA graph cannot hold."""
+    a = pdg.abs()
+    matches = torch.stack([a == p for p in pdgs], dim=-1)
     return torch.argmax(matches.to(torch.int8), dim=-1)
 
 

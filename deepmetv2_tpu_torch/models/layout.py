@@ -78,15 +78,26 @@ class JaxLayout(nn.Module):
         over this model's parameters): optax's ``ScaleByAdamState``
         ``mu``/``nu``/``count`` become ``exp_avg``/``exp_avg_sq``/``step``
         and the injected learning rate the groups' lr.  Takes the JAX
-        package's state or the port's own (``optimizer_state_to_jax``)."""
+        package's state or the port's own (``optimizer_state_to_jax``).
+
+        A capturable optimizer (train/step.py:make_optimizer) keeps its
+        form: the step counts land on the parameters' device, and a tensor
+        lr stays the same tensor, with the restored value written into it
+        (``load_state_dict`` alone would put a copy in its place, and a
+        captured graph would go on reading the old one)."""
         count, lr, mu, nu = _adam_state(opt_state)
         sd = optimizer.state_dict()
         index = {id(p): i for i, p in enumerate(
             p for g in optimizer.param_groups for p in g["params"])}
+        lr_tensors = [g["lr"] for g in optimizer.param_groups]
+        on_device = {id(p): g["capturable"] for g in optimizer.param_groups
+                     for p in g["params"]}
         state = {}
         for path, t in self._param_paths():
             state[index[id(t)]] = {
-                "step": torch.tensor(float(count), dtype=torch.float32),
+                "step": torch.tensor(float(count), dtype=torch.float32,
+                                     device=t.device if on_device[id(t)]
+                                     else "cpu"),
                 "exp_avg": torch.from_numpy(_leaf(mu, path)).to(t),
                 "exp_avg_sq": torch.from_numpy(_leaf(nu, path)).to(t),
             }
@@ -97,6 +108,10 @@ class JaxLayout(nn.Module):
         for g in sd["param_groups"]:
             g["lr"] = lr
         optimizer.load_state_dict(sd)
+        for g, t in zip(optimizer.param_groups, lr_tensors):
+            if isinstance(t, torch.Tensor):
+                t.fill_(lr)
+                g["lr"] = t
 
     @torch.no_grad()
     def optimizer_state_to_jax(self, optimizer: torch.optim.Optimizer) -> Dict:

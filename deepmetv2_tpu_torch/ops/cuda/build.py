@@ -6,6 +6,11 @@ the checkout (the digest covers the sources and the flags, so an edit
 rebuilds).  ``build()`` starts one ``nvcc`` per source at once and waits for
 all of them.  Nothing is built at import: the first call that needs a
 kernel builds it.
+
+Each wrapper that launches a kernel counts its launches in its own
+``launches`` attribute (``counted``); ``launch_counts`` reads them all, and
+a captured CUDA graph (train/chain.py) adds its captured launches at every
+replay with ``add_launches``.
 """
 
 from __future__ import annotations
@@ -27,6 +32,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, Callable] = {}
+_counted: Dict[str, Callable] = {}
+
+
+def counted(fn: Callable) -> Callable:
+    """Register the kernel wrapper ``fn``, whose ``launches`` attribute
+    (set to 0 here) it raises by one where it launches its kernel."""
+    fn.launches = 0
+    _counted[fn.__name__] = fn
+    return fn
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every registered wrapper's ``launches``, by name."""
+    return {name: fn.launches for name, fn in _counted.items()}
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (by wrapper name) to the wrappers' ``launches``."""
+    for name, n in counts.items():
+        _counted[name].launches += n
 
 
 def nvcc() -> str:

@@ -176,7 +176,7 @@ def edge_mlp_fwd(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
     return agg0, agg1, stats
 
 
-edge_mlp_fwd.launches = 0
+build.counted(edge_mlp_fwd)
 
 
 def edge_mlp_bwd(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
@@ -239,7 +239,7 @@ def edge_mlp_bwd(a: torch.Tensor, x: torch.Tensor, nbr: Neighborhood,
     return EdgeMLPGrads(da, dx, dzs, dw_diff, dw1, db1)
 
 
-edge_mlp_bwd.launches = 0
+build.counted(edge_mlp_bwd)
 
 
 class EdgeMLP(torch.autograd.Function):

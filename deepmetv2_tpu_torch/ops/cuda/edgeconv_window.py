@@ -85,7 +85,7 @@ def window_max(c: torch.Tensor, pos: torch.Tensor, r2: float,
     return out
 
 
-window_max.launches = 0
+build.counted(window_max)
 
 
 def window_max_pipelined(c: torch.Tensor, pos: torch.Tensor, r2: float,
@@ -105,7 +105,7 @@ def window_max_pipelined(c: torch.Tensor, pos: torch.Tensor, r2: float,
     return out
 
 
-window_max_pipelined.launches = 0
+build.counted(window_max_pipelined)
 
 
 def window_max_bwd(c: torch.Tensor, pos: torch.Tensor, m: torch.Tensor,
@@ -127,7 +127,7 @@ def window_max_bwd(c: torch.Tensor, pos: torch.Tensor, m: torch.Tensor,
     return dc
 
 
-window_max_bwd.launches = 0
+build.counted(window_max_bwd)
 
 
 class WindowMax(torch.autograd.Function):

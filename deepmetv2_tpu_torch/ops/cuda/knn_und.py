@@ -77,7 +77,7 @@ def knn_kth(h: torch.Tensor, mask: torch.Tensor, k: int
     return t, sq
 
 
-knn_kth.launches = 0
+build.counted(knn_kth)
 
 
 def knn_extract(h: torch.Tensor, mask: torch.Tensor, t: torch.Tensor,
@@ -110,7 +110,7 @@ def knn_extract(h: torch.Tensor, mask: torch.Tensor, t: torch.Tensor,
     return idx, d2v, rel
 
 
-knn_extract.launches = 0
+build.counted(knn_extract)
 
 
 def knn_und_graph(h: torch.Tensor, mask: torch.Tensor, k: int = 16,

@@ -3,9 +3,13 @@ reference train.py:34-145, evaluate.py:31-164), on one device.
 
 The artifact contract is the reference's: ``loss.log`` CSV,
 ``metrics_val_{best,last}.json``, ``{best,last}.resolutions`` (lz4 pickle),
-``{best,last}.ckpt``, plus the run's ``config.json``.  Steps run one per
-batch; the JAX package's chained and device-resident feeds replay the same
-trajectory and are not ported (ROADMAP A11).
+``{best,last}.ckpt``, plus the run's ``config.json``.  As in the JAX
+package, ``fit`` reads the config's feed: ``chain_steps`` consecutive
+same-shape steps run as one chain (train/chain.py: one CUDA graph replay
+on the card), and with ``resident_feed`` the epoch is staged on the device
+once and replayed (train/resident.py); ``chain_steps: 1`` with
+``resident_feed: false`` is per-step dispatch with a double-buffered copy
+of each batch.
 """
 
 from __future__ import annotations
@@ -21,11 +25,15 @@ import torch
 
 from deepmetv2_tpu_torch.config import Config
 from deepmetv2_tpu_torch.data.batching import to_device
-from deepmetv2_tpu_torch.data.loader import PaddedLoader, device_feed
+from deepmetv2_tpu_torch.data.loader import (PaddedLoader, device_feed,
+                                             prefetch_to_device)
 from deepmetv2_tpu_torch.models.drn import DRN
 from deepmetv2_tpu_torch.train import metrics as metrics_mod
+from deepmetv2_tpu_torch.train.chain import (chain_batches,
+                                             make_chained_train_step)
 from deepmetv2_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                   save_checkpoint)
+from deepmetv2_tpu_torch.train.resident import ResidentFeed, recording
 from deepmetv2_tpu_torch.train.schedule import ReduceLROnPlateau
 from deepmetv2_tpu_torch.train.step import (drn_objective,
                                             graphmet_objective,
@@ -37,32 +45,55 @@ from deepmetv2_tpu_torch.utils import artifacts
 from deepmetv2_tpu_torch.utils.logging import RunningAverage, StepTimer
 
 
-def train_one_epoch(model, optimizer, train_step, loader: PaddedLoader,
-                    epoch: int, device, log_every: int = 50,
-                    verbose: bool = True) -> float:
+def feed_line(cfg: Config, device) -> str:
+    """The feed ``fit`` runs under ``cfg`` on ``device``, in one line:
+    resident or streaming, the chain length, CUDA graphs or eager steps."""
+    chain = max(1, cfg.train.chain_steps)
+    graphs = chain > 1 and torch.device(device).type == "cuda"
+    return (f"feed: {'resident' if cfg.train.resident_feed else 'streaming'}"
+            f", chain {chain}, {'CUDA graphs' if graphs else 'eager'}")
+
+
+def train_one_epoch(model, optimizer, train_step, feed, epoch: int, device,
+                    log_every: int = 50, verbose: bool = True,
+                    chain: int = 1) -> float:
     """One pass over the training set (reference train.py:34-60); returns
-    the mean train loss.  Losses stay on the device until the epoch ends,
-    except for one sync at each log line."""
+    the mean train loss.  ``feed`` is a ``ResidentFeed`` (its stacks are
+    already chained and on the device) or a host loader, whose batches are
+    stacked into chains of up to ``chain`` (then ``train_step`` is a
+    chained step, train/chain.py) and streamed through
+    ``prefetch_to_device``.  Nodes are counted from the feed's host-side
+    ``meta``; losses stay on the device, with one sync at each log line
+    (at a chain boundary), and are stacked once at the end."""
     losses = []
     avg = RunningAverage()
     timer = StepTimer()
     timer.start()
-    for i, host_batch in enumerate(loader, 1):
-        loss = train_step(model, optimizer, to_device(host_batch, device))
+    if isinstance(feed, ResidentFeed):
+        it, total, meta = iter(feed), feed.n_steps, feed.meta
+    else:
+        meta = []
+        it = prefetch_to_device(recording(chain_batches(iter(feed), chain),
+                                          meta, chain > 1), place=device)
+        total = len(feed)
+    done = 0
+    for i, batch in enumerate(it):
+        loss = train_step(model, optimizer, batch)
         losses.append(loss)
-        timer.update(num_edges=0,
-                     num_nodes=int(np.sum(host_batch.num_valid)))
-        if verbose and i % log_every == 0:
-            avg.update(float(loss))
-            r = timer.rates()
-            print(f"  epoch {epoch} step {i}/{len(loader)} "
-                  f"loss {avg():.3f} ({r['steps_per_s']:.2f} it/s)")
-    mean_loss = (float(torch.stack(losses).mean()) if losses
-                 else float("inf"))
+        k = loss.shape[0] if loss.ndim else 1
+        done += k
+        timer.update(num_edges=0, num_nodes=meta[i][1])
+        if verbose and done // log_every > (done - k) // log_every:
+            avg.update(float(loss.mean()))
+            print(f"  epoch {epoch} step {done}/{total} "
+                  f"loss {avg():.3f} "
+                  f"({done / max(timer.elapsed, 1e-9):.2f} it/s)")
+    mean_loss = (float(torch.cat([l.reshape(-1) for l in losses]).mean())
+                 if losses else float("inf"))
     if verbose:   # the float() above waited for the epoch's last step
         print(f"Training epoch: {epoch:02d}, MSE: {mean_loss:.4f} "
               f"({timer.elapsed:.2f} s, "
-              f"{1e3 * timer.elapsed / max(timer.steps, 1):.2f} ms/step)")
+              f"{1e3 * timer.elapsed / max(done, 1):.2f} ms/step)")
     return mean_loss
 
 
@@ -70,11 +101,15 @@ def evaluate(model, eval_step, loader: PaddedLoader, cfg: Config, device,
              verbose: bool = True) -> Tuple[Dict[str, float], Dict]:
     """Full validation pass + qT-binned resolution summary, for either
     family's eval step (``(v_met, loss, weights or None)``).  Losses and
-    per-event metrics stay on the device until the end of the pass."""
+    per-event metrics stay on the device until the end of the pass.
+    ``loader`` is a host loader (its batches copied one at a time) or a
+    ``ResidentFeed`` of single batches."""
     losses = []
     arrs, qts, evs = [], [], []
     has_deepmet = False
-    for batch in device_feed(loader, device):
+    feed = (iter(loader) if isinstance(loader, ResidentFeed)
+            else device_feed(loader, device))
+    for batch in feed:
         v_met, loss, _ = eval_step(model, batch)
         losses.append(loss)
         has_deepmet = bool(batch.y.shape[1] > 6)
@@ -110,17 +145,28 @@ def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
     epochs of train steps, the plateau step on the mean train loss, then
     validation, checkpoints and artifacts.  The model's class picks the
     steps, as the JAX package's ``model`` argument does (loop.py:260-264):
-    GraphMET's or the DRN's (``models.drn.DRN``).  ``restore_file``
-    ('best' or 'last') resumes model, optimizer and scheduler from a
-    checkpoint of either package in ``ckpt_dir``, and the best loss from
-    its ``metrics_val_best.json``."""
+    GraphMET's or the DRN's (``models.drn.DRN``).  The feed is the
+    config's, as in the JAX package (loop.py:211-212, 253-258, 276-282):
+    chains of ``cfg.train.chain_steps`` steps, and with
+    ``cfg.train.resident_feed`` the train epoch (chained) and the
+    validation epoch staged on the device once.  ``restore_file`` ('best'
+    or 'last') resumes model, optimizer and scheduler from a checkpoint of
+    either package in ``ckpt_dir``, and the best loss from its
+    ``metrics_val_best.json``."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    if isinstance(model, DRN):
+    family = "drn" if isinstance(model, DRN) else "graphmet"
+    if family == "drn":
         objective, eval_step = drn_objective(cfg), make_drn_eval_step(cfg)
     else:
         objective, eval_step = graphmet_objective(cfg), make_eval_step(cfg)
-    train_step = make_train_step(cfg, objective)
+    chain = max(1, cfg.train.chain_steps)
+    train_step = (make_chained_train_step(cfg, family) if chain > 1
+                  else make_train_step(cfg, objective))
     refresh_step = make_bn_refresh_step(objective)
+    host_train_loader = train_loader        # the BatchNorm refresh reads it
+    if cfg.train.resident_feed:
+        train_loader = ResidentFeed(train_loader, chain=chain, place=device)
+        val_loader = ResidentFeed(val_loader, chain=1, place=device)
     scheduler = ReduceLROnPlateau(
         lr=cfg.optim.lr,
         factor=cfg.optim.plateau_factor,
@@ -163,12 +209,12 @@ def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
 
         train_loss = train_one_epoch(model, optimizer, train_step,
                                      train_loader, epoch, device,
-                                     verbose=verbose)
+                                     verbose=verbose, chain=chain)
 
         if cfg.train.bn_refresh_batches > 0:
             # precise-BN: re-estimate the running statistics under the
             # CURRENT parameters before validating
-            for i, rb in enumerate(train_loader):
+            for i, rb in enumerate(host_train_loader):
                 if i >= cfg.train.bn_refresh_batches:
                     break
                 refresh_step(model, to_device(rb, device))

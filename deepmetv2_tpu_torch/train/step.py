@@ -5,7 +5,8 @@ GraphMET and of the DRN.
 Where the JAX package carries a ``TrainState`` pytree through jitted steps,
 the port keeps the model (parameters and BatchNorm buffers) and a
 ``torch.optim.AdamW`` and updates them in place; a train step returns the
-loss as a device tensor without a host sync.
+loss as a device tensor without a host sync, so that a chain of steps can
+be captured as one CUDA graph (train/chain.py).
 """
 
 from __future__ import annotations
@@ -25,22 +26,40 @@ from deepmetv2_tpu_torch.train.loss import (drn_loss_fn, drn_met_vector,
 from deepmetv2_tpu_torch.train.metrics import _neg_weighted_met
 
 
-def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.AdamW:
+def make_optimizer(cfg: Config, model: torch.nn.Module,
+                   capturable: Optional[bool] = None) -> torch.optim.AdamW:
     """AdamW as the reference configures it (train.py:75: lr 1e-3; torch's
     defaults betas (0.9, 0.999), eps 1e-8, weight decay 0.01), over every
     parameter of either model family (the DRN's ``datanorm`` included), as
     optax's ``adamw`` in the JAX package.  The optional global-norm clip is
-    ``clip_by_global_norm`` in the train steps."""
+    ``clip_by_global_norm`` in the train steps.
+
+    ``capturable`` (default: the parameters lie on a CUDA device) builds
+    the form a CUDA graph can hold (train/chain.py): ``capturable=True``,
+    the step counts on the parameters' device, and the lr a 0-dim float32
+    tensor there, which ``set_learning_rate`` writes in place.  Eager steps
+    on the card use the same form, so they do the same arithmetic as
+    replayed ones."""
     o = cfg.optim
-    return torch.optim.AdamW(model.parameters(), lr=o.lr,
-                             betas=tuple(o.betas), eps=o.eps,
-                             weight_decay=o.weight_decay)
+    params = list(model.parameters())
+    if capturable is None:
+        capturable = params[0].device.type == "cuda"
+    lr = (torch.tensor(o.lr, dtype=torch.float32, device=params[0].device)
+          if capturable else o.lr)
+    return torch.optim.AdamW(params, lr=lr, betas=tuple(o.betas), eps=o.eps,
+                             weight_decay=o.weight_decay,
+                             capturable=capturable)
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
-    """Write the plateau-controlled lr into every parameter group."""
+    """Write the plateau-controlled lr into every parameter group: in place
+    where the lr is a tensor (a captured graph reads that tensor), else as
+    a float."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 @torch.no_grad()
@@ -92,6 +111,8 @@ def _step(cfg: Config, objective: Callable) -> Callable:
     def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                    batch: EventBatch) -> torch.Tensor:
         model.train()
+        # gradients start from None: under capture, backward allocates them
+        # in the graph's own memory, so every replayed step starts from zero
         optimizer.zero_grad(set_to_none=True)
         loss = objective(model, batch)
         loss.backward()
