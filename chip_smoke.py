@@ -42,6 +42,17 @@ Phases, each printing one line:
      checked), with the exact launch counts (replays included), each
      epoch's seconds, the artifacts, and its best.ckpt re-evaluated by the
      evaluate CLI;
+  8b. neighbor_list mode (GraphMET on the radius graph's lists, capped at
+     256, no kernel of its own): nl_evaluate, the evaluate CLI on
+     synthetic 2000 held to GOLDEN_NL_LOSS with no window launch, its
+     seconds and peak memory; nl_predict, the predict CLI over the 2000
+     events (the checks of 6); from_torch, a reference .pth.tar of
+     ckpts_syn's weights (write_reference_checkpoint) evaluated with
+     --from_torch in window and neighbor_list mode, bitwise the native
+     checkpoint's loss of 5 and of nl_evaluate; nl_train_resume, 10 steps
+     from ckpts_syn/best.ckpt as chains of 8 and 2 held to
+     GOLDEN_NL_TRAIN_LOSSES; nl_train, the train CLI for 1 epoch (its
+     "feed:" line), its best.ckpt re-evaluated within REEVAL_RTOL;
   9. kernel_knn: the DRN's graph kernels knn_kth and knn_extract against
      their plain versions, bitwise (t, sq, idx, d2v, rel), on (a) the
      DRN's own round-1 features of an evaluation batch (B=40, N=2048,
@@ -64,7 +75,9 @@ Phases, each printing one line:
      may be off; the loss printed beside DRN_LOSS_FIRST_DESIGN;
  12. predict_drn: the predict CLI with --model drn over the 2000 events;
  13. profile: one evaluation step's and one train step's device time by
-     kernel (torch.profiler), and one DRN evaluation step's;
+     kernel (torch.profiler), the same in neighbor_list mode with the
+     radius build, the gather and its backward timed alone, and one DRN
+     evaluation step's;
  14. kernel_edge_mlp_bwd: the DRN's edge-MLP backward against its plain
      version evaluated in f64, for add, mean and max on (a) the DRN's
      round-1 features of a train batch (B=16, N=2048) with the cotangents
@@ -86,6 +99,12 @@ Phases, each printing one line:
      counts of all four DRN kernels (replays included), each epoch's
      seconds, the artifacts, and best.ckpt re-evaluated by the evaluate
      CLI;
+ 16b. drn_composed: the DRN over the 400 validation events at batch 8
+     with the composed graph build and the gather-reduce conv, every
+     event's MET and graph decisions held to the JAX package's composed
+     path (GOLDEN_DRN_COMPOSED_MET, _GRAPHS) by the rule of 11, no DRN
+     kernel launched; one train-mode backward with mirror_gather off and
+     on, within DRN_MIRROR_ATOL of the largest gradient;
  17. probe: the pipelined window forward (the TPU revolver probe's port)
      bitwise against window_max_fwd and the plain version at both probe
      shapes, with times;
@@ -94,7 +113,8 @@ Phases, each printing one line:
      copy of each batch and under chained resident replay: ms per step,
      device ms per step and the idle share, beside the card's name and
      power limit;
-then a JSON line of every ported kernel and, last, the device JSON line.
+then the whole run's seconds, a JSON line of every ported kernel and,
+last, the device JSON line.
 Any failed check exits non-zero before the last line.  Writes only under
 build/ in the checkout.
 """
@@ -123,6 +143,19 @@ GOLDEN_TRAIN_LOSSES = (
     0.63520348072052, 0.5926302075386047, 1.1002800464630127,
     0.6679131984710693)
 REEVAL_RTOL = 1e-6   # train CLI's metrics_val_best.json against cli.evaluate
+# JAX package, cli.evaluate --graph_mode neighbor_list --synthetic 2000
+# --restore_file best on ckpts_syn, on the CPU (the radius graph's lists,
+# capped at the nearest 256, self-loops, no phi wrap)
+GOLDEN_NL_LOSS = 1.0319758653640747
+# JAX package, make_train_step in neighbor_list mode from ckpts_syn/best.ckpt
+# on the first 10 train batches of synthetic 2000 (seed 42, batch 8,
+# unsorted, as its train CLI leaves them in this mode), on the CPU:
+# tests/test_torch_train.py:jax_nl_resume_losses(10)
+GOLDEN_NL_TRAIN_LOSSES = (
+    1.3795241117477417, 0.6131558418273926, 1.418241262435913,
+    0.6025006175041199, 0.8353309631347656, 0.8708376884460449,
+    0.635197103023529, 0.5926329493522644, 1.1002843379974365,
+    0.6679155826568604)
 GRAD_RTOL, GRAD_ATOL = 1e-5, 2e-6   # atol times the largest |gradient|
 R = 0.4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
@@ -170,6 +203,16 @@ GOLDEN_DRN_TRAIN_LOSSES = (
     44.68871307373047, 37.24016571044922, 32.294837951660156,
     22.015527725219727)
 GOLDEN_DRN_TRAIN_GRAPHS = "tests/golden_drn_train_graphs.npy"
+# JAX package, the same validation pass through its CPU default, the
+# composed graph build and the XLA-form conv:
+# tests/test_torch_drn.py:jax_drn_eval(2000, 8, fused=False)
+GOLDEN_DRN_COMPOSED_LOSS = 41.49879837036133
+GOLDEN_DRN_COMPOSED_MET = "tests/golden_drn_composed_val_met.npy"
+GOLDEN_DRN_COMPOSED_GRAPHS = "tests/golden_drn_composed_val_graphs.npy"
+# mirror_gather on and off, one train-mode backward on the same graphs:
+# every gradient within this much of the largest |gradient| (the port on the
+# CPU at H=16: 1.4e-7, tests/test_torch_drn_composed.py)
+DRN_MIRROR_ATOL = 1e-5
 # The rule, fixed before any run on the card: a step whose graphs, and every
 # earlier step's, equal the JAX digests is held to LOSS_RTOL; a later step
 # trains on other graphs (near-ties, ROADMAP C; train-mode BatchNorm couples
@@ -201,6 +244,51 @@ DRN_STEP_LOSS_RTOL = 2e-4
 DRN_STEP_GRAD_ATOL = 2e-3
 DRN_STEP_PARAM_ATOL = 2e-6
 DRN_STEP_BN_ATOL = 1e-5
+
+
+def write_reference_checkpoint(params, bn_state, path: str,
+                               epoch: int = 0) -> None:
+    """Write GraphMET weights in the JAX package's layout (numpy trees, as
+    ``params_to_jax`` gives them) as a reference ``.pth.tar``: a ``Net``
+    state_dict (``graphnet.*``, torch ``[out, in]`` Linear weights, PyG
+    EdgeConv's ``nn.0`` Linear, BatchNorm1d buffers) with ``epoch``,
+    ``optim_dict`` and ``sched_dict``, as reference train.py:110-113 saves
+    it; ``--from_torch`` reads it back."""
+    import numpy as np
+    import torch
+
+    g, sd = "graphnet", {}
+
+    def t(a):
+        return torch.tensor(np.asarray(a))
+
+    def lin(prefix, p):
+        sd[f"{prefix}.weight"] = t(np.asarray(p["w"]).T)
+        sd[f"{prefix}.bias"] = t(p["b"])
+
+    def bn(prefix, p, st):
+        sd[f"{prefix}.weight"] = t(p["gamma"])
+        sd[f"{prefix}.bias"] = t(p["beta"])
+        sd[f"{prefix}.running_mean"] = t(st[0])
+        sd[f"{prefix}.running_var"] = t(st[1])
+        sd[f"{prefix}.num_batches_tracked"] = t(np.int64(st[2]))
+
+    for name in ("embed_charge", "embed_pdgid", "embed_pv"):
+        sd[f"{g}.{name}.weight"] = t(params[name]["w"])
+    for name in ("embed_continuous", "embed_categorical", "encode_all"):
+        lin(f"{g}.{name}.0", params[name])
+    bn(f"{g}.bn_all", params["bn_all"], bn_state["bn_all"])
+    for d, conv in enumerate(params["convs"]):
+        lin(f"{g}.conv_continuous.{d}.0.nn.0", conv["edge"])
+        bn(f"{g}.conv_continuous.{d}.1", conv["bn"], bn_state["convs"][d])
+    lin(f"{g}.output.0", params["output"]["lin0"])
+    lin(f"{g}.output.2", params["output"]["lin1"])
+    torch.save({"epoch": epoch, "state_dict": sd,
+                "optim_dict": {"state": {}, "param_groups": [
+                    {"lr": 1e-3, "betas": (0.9, 0.999), "eps": 1e-8,
+                     "weight_decay": 0.01, "params": []}]},
+                "sched_dict": {"best": 1.0, "num_bad_epochs": 0,
+                               "_last_lr": [1e-3]}}, path)
 
 
 def fail(msg: str) -> None:
@@ -775,11 +863,12 @@ def drn_graph_digests(rounds):
     return out
 
 
-def drn_eval_pass(model, loader, device):
+def drn_eval_pass(model, loader, device, **forces):
     """The DRN's validation pass as the evaluate CLI takes it, with what the
     CLI does not return: ``(losses, met, graphs)``, the per-batch losses, the
     cartesian MET estimate of every event ``[n, 2]`` in the loader's order
-    and its per-round graph digests ``[n, rounds]``."""
+    and its per-round graph digests ``[n, rounds]``.  ``forces``
+    (``graph_force``, ``conv_force``) go to ``drn_net_apply``."""
     import numpy as np
     import torch
     from deepmetv2_tpu_torch.data import to_device
@@ -792,7 +881,7 @@ def drn_eval_pass(model, loader, device):
         batch = to_device(host, device)
         diag = {}
         with torch.no_grad():
-            pred = drn_net_apply(model.eval(), batch, diag)
+            pred = drn_net_apply(model.eval(), batch, diag, **forces)
         losses.append(float(drn_loss_fn(pred, batch, head)))
         mets.append(drn_met_vector(pred, head)[:len(ids)].cpu().numpy())
         rounds = [[t.cpu().numpy() for t in (m, nbr.idx, nbr.mask, c, p)]
@@ -1094,10 +1183,7 @@ def evaluate_drn_phase(device, work: str, model, cfg):
     from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
     from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import window_max
 
-    ck = os.path.join(work, "drn")
-    os.makedirs(ck)
-    for f in ("config.json", "best.ckpt"):
-        shutil.copy(os.path.join(HERE, DRN_CKPTS, f), ck)
+    ck = ckpt_copy(work, "drn", DRN_CKPTS)
     counters = drn_counters()
     for fn in list(counters.values()) + [window_max]:
         fn.launches = 0
@@ -1112,38 +1198,15 @@ def evaluate_drn_phase(device, work: str, model, cfg):
     losses, met, graphs = drn_eval_pass(model, ld, device)
     pass_loss = float(np.mean(np.asarray(losses, np.float64)))
     cli_rel = abs(loss - pass_loss) / pass_loss
-    gold = np.load(os.path.join(HERE, GOLDEN_DRN_MET))
-    gold_graphs = np.load(os.path.join(HERE, GOLDEN_DRN_GRAPHS))
-    gen = np.stack([np.asarray(ld.dataset[int(i)][1][:2])
-                    for i in np.concatenate(ld._batches)])
-    if met.shape != gold.shape or graphs.shape != gold_graphs.shape:
-        fail(f"DRN evaluate: {met.shape} / {graphs.shape} events checked, "
-             f"the JAX package's files hold {gold.shape} / "
-             f"{gold_graphs.shape}")
-    differs = graphs != gold_graphs                        # [events, rounds]
-    diverged = differs.any(axis=1)
-    dev = np.abs(met - gold).max(axis=1)
-    scale = np.maximum(np.abs(gold).max(axis=1), 1.0)
-    off = dev > DRN_EVENT_RTOL * scale
-    per_t = 0.5 * ((met - gen) ** 2).sum(1)
-    per_j = 0.5 * ((gold - gen) ** 2).sum(1)
-    kept_rel = (abs(per_t[~diverged].mean() - per_j[~diverged].mean())
-                / per_j[~diverged].mean())
-    say("evaluate_drn", loss=loss, golden=GOLDEN_DRN_LOSS,
+    drn_golden_rule(
+        "evaluate_drn", ld, losses, met, graphs, GOLDEN_DRN_MET,
+        GOLDEN_DRN_GRAPHS, loss=loss, golden=GOLDEN_DRN_LOSS,
         rel_err=abs(loss - GOLDEN_DRN_LOSS) / GOLDEN_DRN_LOSS,
         loss_first_design=DRN_LOSS_FIRST_DESIGN,
         same_as_first_design=loss == DRN_LOSS_FIRST_DESIGN,
         jax_tpu_run_loss_not_a_gate=JAX_TPU_DRN_LOSS, launches=launches,
         window_max_launches=window_max.launches, seconds=sec,
-        checked_pass_loss=pass_loss, cli_rel_err=cli_rel,
-        events=int(len(met)), graph_events=int(diverged.sum()),
-        graph_events_by_round=[int(c) for c in differs.sum(axis=0)],
-        events_off=int(off.sum()),
-        off_events=[int(i) for i in np.flatnonzero(off)],
-        off_max_abs_met=float(dev[off].max()) if off.any() else 0.0,
-        kept_events=int((~diverged).sum()),
-        kept_max_rel_met=float((dev / scale)[~diverged].max()),
-        kept_loss_rel_err=float(kept_rel))
+        checked_pass_loss=pass_loss, cli_rel_err=cli_rel)
     want = 2 * len(ld)
     if launches != {k: want for k in counters} or window_max.launches:
         fail(f"DRN evaluate launched {launches} and window_max "
@@ -1151,17 +1214,6 @@ def evaluate_drn_phase(device, work: str, model, cfg):
     if not cli_rel <= DRN_CLI_RTOL:
         fail(f"DRN evaluate CLI loss {loss} is {cli_rel} from the checked "
              f"pass's {pass_loss}, not within {DRN_CLI_RTOL}")
-    if (off & ~diverged).any():
-        fail(f"DRN evaluate: events {np.flatnonzero(off & ~diverged).tolist()}"
-             f" differ from the JAX package's MET by more than "
-             f"{DRN_EVENT_RTOL} although their graphs equal its graphs")
-    if diverged.sum() > DRN_MAX_GRAPH_EVENTS:
-        fail(f"DRN evaluate: {int(diverged.sum())} of {len(met)} events have "
-             f"graph decisions unlike the JAX package's; at most "
-             f"{DRN_MAX_GRAPH_EVENTS} may (near-ties)")
-    if not kept_rel <= DRN_KEPT_RTOL:
-        fail(f"DRN evaluate: the loss over the events with the JAX graphs is "
-             f"{kept_rel} from the JAX package's, not within {DRN_KEPT_RTOL}")
     return launches
 
 
@@ -2085,7 +2137,371 @@ def feed_profile(device, family: str) -> None:
             fail(f"feed {family} {mode}: the profile saw no device work")
 
 
+def check_predictions(z, what: str) -> None:
+    """The GraphMET predict CLI's npz ``z`` over synthetic 2000: every
+    event in input order, finite MET, weights in [0, 1] and 0 at
+    padding."""
+    import numpy as np
+
+    w, nv = z["weights"], z["n_valid"]
+    real = np.arange(w.shape[1])[None, :] < nv[:, None]
+    if len(z["met"]) != 2000 or not np.array_equal(z["event_index"],
+                                                   np.arange(2000)):
+        fail(f"{what} did not return 2000 events in input order")
+    if not np.all(np.isfinite(z["met"])):
+        fail(f"{what} returned non-finite MET")
+    if not (np.all((w[real] >= 0) & (w[real] <= 1)) and np.all(w[~real] == 0)):
+        fail(f"{what} weights outside [0, 1] or nonzero at padding")
+
+
+def ckpt_copy(work: str, name: str, src: str = "ckpts_syn") -> str:
+    """A fresh copy of a committed run's config.json and best.ckpt."""
+    ck = os.path.join(work, name)
+    os.makedirs(ck)
+    for f in ("config.json", "best.ckpt"):
+        shutil.copy(os.path.join(HERE, src, f), ck)
+    return ck
+
+
+def peak_run(fn):
+    """``(fn(), seconds, peak device MiB)``, synchronized."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t,
+            torch.cuda.max_memory_allocated() / 2 ** 20)
+
+
+def nl_evaluate_phase(work: str) -> float:
+    """The evaluate CLI in neighbor_list mode on synthetic 2000 from a copy
+    of ckpts_syn: the loss within LOSS_RTOL of GOLDEN_NL_LOSS, no window
+    kernel launched; returns the loss."""
+    from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
+    from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import window_max
+
+    ck = ckpt_copy(work, "nl")
+    window_max.launches = 0
+    metrics, sec, peak = peak_run(lambda: evaluate_cli.run(
+        ["--synthetic", "2000", "--ckpts", ck, "--restore_file", "best",
+         "--graph_mode", "neighbor_list"]))
+    loss = metrics["loss"]
+    rel = abs(loss - GOLDEN_NL_LOSS) / GOLDEN_NL_LOSS
+    say("nl_evaluate", loss=loss, golden=GOLDEN_NL_LOSS, rel_err=rel,
+        window_max_launches=window_max.launches, seconds=sec, peak_mb=peak)
+    if not rel <= LOSS_RTOL:
+        fail(f"neighbor_list validation loss {loss} is not within "
+             f"{LOSS_RTOL} of {GOLDEN_NL_LOSS}")
+    if window_max.launches:
+        fail(f"neighbor_list evaluate launched window_max "
+             f"{window_max.launches} times")
+    return loss
+
+
+def nl_predict_phase(work: str) -> None:
+    """The predict CLI in neighbor_list mode over synthetic 2000."""
+    import numpy as np
+    from deepmetv2_tpu_torch.cli import predict as predict_cli
+    from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import window_max
+
+    out = os.path.join(work, "pred_nl.npz")
+    window_max.launches = 0
+    _, sec, peak = peak_run(lambda: predict_cli.main(
+        ["--synthetic", "2000", "--ckpts", os.path.join(work, "nl"),
+         "--out", out, "--graph_mode", "neighbor_list"]))
+    z = np.load(out)
+    say("nl_predict", events=int(len(z["met"])), seconds=sec, peak_mb=peak,
+        window_max_launches=window_max.launches,
+        met_mean=float(np.mean(z["met"])))
+    check_predictions(z, "neighbor_list predict")
+    if window_max.launches:
+        fail(f"neighbor_list predict launched window_max "
+             f"{window_max.launches} times")
+
+
+def from_torch_phase(work: str, window_loss: float, nl_loss: float) -> None:
+    """ckpts_syn/best.ckpt's weights written as a reference .pth.tar
+    (write_reference_checkpoint), then ``evaluate --from_torch`` into fresh
+    directories: in window mode bitwise the native checkpoint's loss of
+    phase 5, in neighbor_list mode bitwise nl_evaluate's."""
+    from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
+    from deepmetv2_tpu_torch.train.checkpoint import load_checkpoint
+
+    payload = load_checkpoint(os.path.join(HERE, "ckpts_syn", "best.ckpt"))
+    pth = os.path.join(work, "reference", "best.pth.tar")
+    os.makedirs(os.path.dirname(pth))
+    write_reference_checkpoint(payload["params"], payload["bn_state"], pth,
+                               epoch=payload["epoch"])
+    got = {}
+    for mode, want in (("window", window_loss), ("neighbor_list", nl_loss)):
+        (m, sec, _) = peak_run(lambda: evaluate_cli.run(
+            ["--synthetic", "2000", "--from_torch", pth, "--graph_mode",
+             mode, "--ckpts", os.path.join(work, f"from_torch_{mode}")]))
+        got[mode] = (m["loss"], want, sec)
+    say("from_torch", **{m: {"loss": a, "native_loss": b, "bitwise": a == b,
+                             "seconds": t} for m, (a, b, t) in got.items()})
+    for mode, (a, b, _) in got.items():
+        if a != b:
+            fail(f"evaluate --from_torch ({mode}) gives {a}, the native "
+                 f"checkpoint {b}")
+
+
+def nl_train_resume_phase(device) -> None:
+    """10 train steps from ckpts_syn/best.ckpt in neighbor_list mode (the
+    batches unsorted, as the train CLI leaves them in this mode) through
+    the chained runner as chains of 8 and 2, each loss within LOSS_RTOL of
+    GOLDEN_NL_TRAIN_LOSSES."""
+    import itertools
+
+    from deepmetv2_tpu_torch.cli.common import load_run_config
+    from deepmetv2_tpu_torch.data import (fetch_dataloader, synthetic_events,
+                                          to_device)
+    from deepmetv2_tpu_torch.models.graph_met import GraphMET
+    from deepmetv2_tpu_torch.train.chain import (make_chained_train_step,
+                                                 stack_batches)
+    from deepmetv2_tpu_torch.train.checkpoint import restore_checkpoint
+    from deepmetv2_tpu_torch.train.step import make_optimizer
+
+    ck = os.path.join(HERE, "ckpts_syn")
+    cfg = load_run_config(ck)               # its graph: neighbor_list, 256
+    model = GraphMET(cfg.model, device=device)
+    opt = make_optimizer(cfg, model)
+    restore_checkpoint(os.path.join(ck, "best.ckpt"), model, opt)
+    ld = fetch_dataloader(events=synthetic_events(2000, seed=42),
+                          batch_size=TRAIN_B)["train"]
+    hosts = list(itertools.islice(iter(ld), len(GOLDEN_NL_TRAIN_LOSSES)))
+    runner = make_chained_train_step(cfg)
+
+    def run():
+        return [v for chain in (hosts[:8], hosts[8:]) for v in runner(
+            model, opt, to_device(stack_batches(chain), device)).tolist()]
+
+    losses, sec, peak = peak_run(run)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, GOLDEN_NL_TRAIN_LOSSES)]
+    say("nl_train_resume", graph=cfg.graph.mode, k=cfg.graph.max_neighbors,
+        chains=[8, 2], losses=losses, golden=GOLDEN_NL_TRAIN_LOSSES,
+        max_rel_err=max(rel), seconds=sec, peak_mb=peak)
+    if cfg.graph.mode != "neighbor_list" or not max(rel) <= LOSS_RTOL:
+        fail(f"neighbor_list train losses are not within {LOSS_RTOL} of the "
+             f"JAX package's: {losses}")
+
+
+def nl_train_phase(work: str) -> None:
+    """The train CLI with --graph_mode neighbor_list for 1 epoch on
+    synthetic 2000, chained and resident by the config (its "feed:" line);
+    its best.ckpt re-evaluated by the evaluate CLI within REEVAL_RTOL."""
+    import torch
+    from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
+    from deepmetv2_tpu_torch.cli import train as train_cli
+    from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import (window_max,
+                                                              window_max_bwd)
+
+    ck = os.path.join(work, "nl_train")
+    window_max.launches = window_max_bwd.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, sec, peak = peak_run(lambda: train_cli.main(
+            ["--synthetic", "2000", "--batch_size", str(TRAIN_B), "--ckpts",
+             ck, "--epochs", "1", "--graph_mode", "neighbor_list"]))
+    text = out.getvalue()
+    with open(os.path.join(ck, "metrics_val_best.json")) as f:
+        best = json.load(f)["loss"]
+    with open(os.path.join(ck, "config.json")) as f:
+        graph = json.load(f)["graph"]
+    ev = ckpt_copy(work, "nl_train_eval", ck)
+    got = evaluate_cli.run(["--synthetic", "2000", "--ckpts", ev,
+                            "--batch_size", str(TRAIN_B), "--graph_mode",
+                            "neighbor_list"])["loss"]
+    torch.cuda.synchronize()
+    rel = abs(got - best) / abs(best)
+    say("nl_train", seconds=sec, peak_mb=peak,
+        epoch_seconds=epoch_seconds(text), graph=graph,
+        window_launches=[window_max.launches, window_max_bwd.launches],
+        metrics_val_best=best, evaluate_cli=got, rel_err=rel,
+        log=[ln for ln in text.splitlines()
+             if ln.startswith(("feed:", "Training epoch", "- Eval"))])
+    if rc != 0:
+        fail(f"neighbor_list train CLI exited {rc}")
+    check_feed_line("neighbor_list train CLI", text)
+    if "graph mode: window" in text or graph["mode"] != "neighbor_list" \
+            or graph["presorted"]:
+        fail(f"neighbor_list train CLI ran in another graph mode: {graph}")
+    if window_max.launches or window_max_bwd.launches:
+        fail("neighbor_list train CLI launched the window kernels")
+    if not rel <= REEVAL_RTOL:
+        fail(f"evaluate CLI gives {got} on the neighbor_list train CLI's "
+             f"best.ckpt, not within {REEVAL_RTOL} of {best}")
+
+
+def drn_golden_rule(name: str, ld, losses, met, graphs, gold_met: str,
+                    gold_graphs: str, **extra) -> dict:
+    """Hold a DRN validation pass (``drn_eval_pass``) to a JAX golden's
+    per-event MET and graph digests: an event may miss DRN_EVENT_RTOL only
+    where its graph decisions differ from the JAX package's (near-ties,
+    ROADMAP C), at most DRN_MAX_GRAPH_EVENTS such, and the loss over the
+    other events must equal the JAX loss over the same events within
+    DRN_KEPT_RTOL.  Prints the phase line; returns its numbers."""
+    import numpy as np
+
+    gold = np.load(os.path.join(HERE, gold_met))
+    gold_g = np.load(os.path.join(HERE, gold_graphs))
+    gen = np.stack([np.asarray(ld.dataset[int(i)][1][:2])
+                    for i in np.concatenate(ld._batches)])
+    if met.shape != gold.shape or graphs.shape != gold_g.shape:
+        fail(f"{name}: {met.shape} / {graphs.shape} events checked, the JAX "
+             f"package's files hold {gold.shape} / {gold_g.shape}")
+    differs = graphs != gold_g                             # [events, rounds]
+    diverged = differs.any(axis=1)
+    dev = np.abs(met - gold).max(axis=1)
+    scale = np.maximum(np.abs(gold).max(axis=1), 1.0)
+    off = dev > DRN_EVENT_RTOL * scale
+    per_t = 0.5 * ((met - gen) ** 2).sum(1)
+    per_j = 0.5 * ((gold - gen) ** 2).sum(1)
+    kept_rel = (abs(per_t[~diverged].mean() - per_j[~diverged].mean())
+                / per_j[~diverged].mean())
+    out = dict(extra, pass_loss=float(np.mean(np.asarray(losses,
+                                                          np.float64))),
+               events=int(len(met)), graph_events=int(diverged.sum()),
+               graph_events_by_round=[int(c) for c in differs.sum(axis=0)],
+               events_off=int(off.sum()),
+               off_events=[int(i) for i in np.flatnonzero(off)],
+               off_max_abs_met=float(dev[off].max()) if off.any() else 0.0,
+               kept_events=int((~diverged).sum()),
+               kept_max_rel_met=float((dev / scale)[~diverged].max()),
+               kept_loss_rel_err=float(kept_rel))
+    say(name, **out)
+    if (off & ~diverged).any():
+        fail(f"{name}: events {np.flatnonzero(off & ~diverged).tolist()} "
+             f"differ from the JAX package's MET by more than "
+             f"{DRN_EVENT_RTOL} although their graphs equal its graphs")
+    if diverged.sum() > DRN_MAX_GRAPH_EVENTS:
+        fail(f"{name}: {int(diverged.sum())} of {len(met)} events have graph "
+             f"decisions unlike the JAX package's; at most "
+             f"{DRN_MAX_GRAPH_EVENTS} may (near-ties)")
+    if not kept_rel <= DRN_KEPT_RTOL:
+        fail(f"{name}: the loss over the events with the JAX graphs is "
+             f"{kept_rel} from the JAX package's, not within {DRN_KEPT_RTOL}")
+    return out
+
+
+def drn_composed_phase(device) -> None:
+    """The DRN on the 400 validation events of synthetic 2000 at batch 8
+    with the composed graph build and the gather-reduce conv
+    (``graph_force='composed', conv_force='xla'``), held to the JAX
+    package's CPU default, its composed path (GOLDEN_DRN_COMPOSED_*), by
+    drn_golden_rule, no DRN kernel launched; then one train-mode forward
+    and backward on a train batch with ``mirror_gather`` off and on, on the
+    same graphs: every gradient within DRN_MIRROR_ATOL of the largest."""
+    import dataclasses
+
+    import torch
+    from deepmetv2_tpu_torch.data import (fetch_dataloader, synthetic_events,
+                                          to_device)
+    from deepmetv2_tpu_torch.models.drn import DRN, drn_net_apply
+    from deepmetv2_tpu_torch.train.loss import drn_loss_fn
+
+    model, cfg = drn_model(device)
+    forces = dict(graph_force="composed", conv_force="xla")
+    counters = drn_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    ld = drn_val_loader(cfg, 8)
+    (losses, met, graphs), sec, peak = peak_run(
+        lambda: drn_eval_pass(model, ld, device, **forces))
+    launches = {k: fn.launches for k, fn in counters.items()}
+    drn_golden_rule("drn_composed", ld, losses, met, graphs,
+                    GOLDEN_DRN_COMPOSED_MET, GOLDEN_DRN_COMPOSED_GRAPHS,
+                    golden_loss=GOLDEN_DRN_COMPOSED_LOSS, seconds=sec,
+                    peak_mb=peak, launches=launches)
+    if any(launches.values()):
+        fail(f"the composed DRN launched {launches}")
+
+    host = next(iter(fetch_dataloader(events=synthetic_events(2000, seed=42),
+                                      batch_size=DRN_TRAIN_B)["train"]))
+    batch = to_device(host, device)
+    grads = []
+    for mirror in (False, True):
+        m = DRN(dataclasses.replace(cfg.drn, mirror_gather=mirror),
+                device=device)
+        m.load_state_dict(model.state_dict())
+        m.train()
+        loss = drn_loss_fn(drn_net_apply(m, batch, **forces), batch,
+                           cfg.drn.head)
+        loss.backward()
+        grads.append((float(loss.detach()), [p.grad for p in m.parameters()]))
+    top = max(float(g.abs().max()) for g in grads[0][1])
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(grads[0][1], grads[1][1]))
+    say("drn_composed_mirror", batch=[batch.batch_size, batch.max_nodes],
+        losses=[grads[0][0], grads[1][0]], max_abs_grad=top,
+        max_grad_diff=diff, rel=diff / top)
+    if grads[0][0] != grads[1][0] or not diff <= DRN_MIRROR_ATOL * top:
+        fail(f"mirror_gather on and off: losses {grads[0][0]}, "
+             f"{grads[1][0]}, gradients {diff} apart (largest {top})")
+
+
+def nl_profile(device) -> None:
+    """One neighbor_list evaluation step (40 events, N=2048, K=256) and one
+    train step (8 events): wall ms from CUDA events, device ms by kernel
+    from torch.profiler, peak memory; and, on the same inputs, the radius
+    graph build, the gather of c ``[B, N, K, H]`` and its backward (the
+    scatter-add adjoint) alone."""
+    import itertools
+
+    import torch
+    from deepmetv2_tpu_torch.cli.common import load_run_config
+    from deepmetv2_tpu_torch.data import (fetch_dataloader, synthetic_events,
+                                          to_device)
+    from deepmetv2_tpu_torch.models.graph_met import GraphMET
+    from deepmetv2_tpu_torch.ops.segment import gather_neighbors
+    from deepmetv2_tpu_torch.train.checkpoint import restore_checkpoint
+    from deepmetv2_tpu_torch.train.step import (build_graph, make_eval_step,
+                                                make_optimizer,
+                                                make_train_step)
+
+    ck = os.path.join(HERE, "ckpts_syn")
+    cfg = load_run_config(ck)
+    model = GraphMET(cfg.model, device=device)
+    opt = make_optimizer(cfg, model)
+    restore_checkpoint(os.path.join(ck, "best.ckpt"), model, opt)
+    events = synthetic_events(2000, seed=42)
+    eval_b = to_device(next(iter(fetch_dataloader(events=events,
+                                                  batch_size=40)["test"])),
+                       device)
+    train_b = to_device(next(itertools.islice(iter(fetch_dataloader(
+        events=events, batch_size=TRAIN_B)["train"]), 1)), device)
+    eval_step, train_step = make_eval_step(cfg), make_train_step(cfg)
+    H = cfg.model.hidden_dim
+    for name, batch, step in (
+            ("nl_eval", eval_b, lambda: eval_step(model, eval_b)),
+            ("nl_train", train_b, lambda: train_step(model, opt, train_b))):
+        _, _, peak = peak_run(step)
+        step_ms = cuda_ms(step, 10)
+        dev_ms, n_k, top = step_profile(step, reps=3)
+        _, nbr = build_graph(batch, cfg)
+        c = torch.randn(batch.batch_size, batch.max_nodes, H, device=device,
+                        requires_grad=True)
+        g = gather_neighbors(c, nbr)
+        ct = torch.randn_like(g)
+        parts = {
+            "radius_graph_ms": cuda_ms(lambda: build_graph(batch, cfg), 5),
+            "gather_ms": cuda_ms(lambda: gather_neighbors(c.detach(), nbr),
+                                 5),
+            "gather_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+                g, c, ct, retain_graph=True), 5)}
+        say("profile", step=name, card=CARD,
+            batch=[batch.batch_size, batch.max_nodes],
+            k=cfg.graph.max_neighbors, step_ms=step_ms, device_ms=dev_ms,
+            device_idle_share=1 - dev_ms / step_ms, peak_mb=peak,
+            kernels_per_step=n_k, top=top, **parts)
+        del g, ct, c, nbr
+
+
 def main() -> int:
+    t_run = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2140,10 +2556,7 @@ def main() -> int:
 
     work = os.path.join(HERE, "build", "smoke")
     shutil.rmtree(work, ignore_errors=True)
-    ck = os.path.join(work, "ckpts")
-    os.makedirs(ck)
-    for f in ("config.json", "best.ckpt"):
-        shutil.copy(os.path.join(HERE, "ckpts_syn", f), ck)
+    ck = ckpt_copy(work, "ckpts")
     window_max.launches = window_max_bwd.launches = 0
     t = time.perf_counter()
     metrics = evaluate_cli.run(["--synthetic", "2000", "--ckpts", ck,
@@ -2175,17 +2588,9 @@ def main() -> int:
     pred_s = time.perf_counter() - t
     pred_launches = window_max.launches
     z = np.load(out)
-    w, nv = z["weights"], z["n_valid"]
-    real = np.arange(w.shape[1])[None, :] < nv[:, None]
     say("predict", events=int(len(z["met"])), launches=pred_launches,
         seconds=pred_s, met_mean=float(np.mean(z["met"])))
-    if len(z["met"]) != 2000 or not np.array_equal(z["event_index"],
-                                                   np.arange(2000)):
-        fail("predict did not return 2000 events in input order")
-    if not np.all(np.isfinite(z["met"])):
-        fail("predict returned non-finite MET")
-    if not (np.all((w[real] >= 0) & (w[real] <= 1)) and np.all(w[~real] == 0)):
-        fail("predict weights outside [0, 1] or nonzero at padding")
+    check_predictions(z, "predict")
     if pred_launches != 2 * 50:
         fail(f"predict launched window_max {pred_launches} times, not 100")
 
@@ -2196,6 +2601,14 @@ def main() -> int:
 
     # 8. main path: the train CLI
     train_fwd, train_bwd = train_phase(work)
+
+    # 8b. neighbor_list mode: evaluate, predict, --from_torch in both modes,
+    # resumed chained steps, the train CLI
+    nl_loss = nl_evaluate_phase(work)
+    nl_predict_phase(work)
+    from_torch_phase(work, metrics["loss"], nl_loss)
+    nl_train_resume_phase(device)
+    nl_train_phase(work)
 
     # 9-10. the DRN's kernels against their plain versions
     drn, drn_cfg = drn_model(device)
@@ -2210,6 +2623,7 @@ def main() -> int:
 
     # 13. where one evaluation step's and one train step's time goes
     profile_phase(device, ck)
+    nl_profile(device)
     drn_profile(device, drn, drn_cfg)
 
     # 14. the DRN's edge-MLP backward kernel against its plain version
@@ -2220,6 +2634,10 @@ def main() -> int:
     drn_t, drn_opt, drn_tcfg = drn_train_resume_phase(device, drn_cfg)
     chain_replay_phase(device, "drn")
     drn_train = drn_train_phase(work)
+
+    # 16b. the DRN's composed graph build and gather-reduce conv, held to
+    # the JAX package's composed path; the mirror gather's backward
+    drn_composed_phase(device)
 
     # 17. the revolver probe's kernel
     probe_launches, probe = probe_phase(device)
@@ -2233,6 +2651,7 @@ def main() -> int:
     def runs(name):
         return drn_eval[name] + drn_pred[name] + drn_train[name]
 
+    say("run", seconds=time.perf_counter() - t_run, card=CARD)
     src = "deepmetv2_tpu_torch/csrc/"
     print(json.dumps({"kernels": [dict({
         "name": "window_max_fwd", "route": "cuda",

@@ -44,17 +44,18 @@ def load_run_config(ckpt_dir: str) -> Config:
 
 def apply_graph_mode(cfg: Config, args, all_events, presorted: bool = False,
                      loaders=None) -> Config:
-    """Resolve ``--graph_mode`` into the config.  Window mode sizes the halo
-    (the max neighbour span, rounded up to a multiple of 64, at least 64):
-    with ``loaders``, on the row order they emit (needed for cell-sorted
+    """Resolve ``--graph_mode`` into the config.  neighbor_list mode leaves
+    it as it is (the config's own graph section, whose mode is
+    neighbor_list by default).  Window mode sizes the halo (the max
+    neighbour span, rounded up to a multiple of 64, at least 64): with
+    ``loaders``, on the row order they emit (needed for cell-sorted
     loaders); otherwise from ``all_events`` in eta order.  ``presorted``
     only when the loaders presort (``presort_eta=True``): the steps then
     trust the batch order and do not sort."""
     from deepmetv2_tpu_torch.data.sorting import required_halo_events
 
     if args.graph_mode != "window":
-        raise SystemExit(f"--graph_mode {args.graph_mode}: not ported yet; "
-                         "use --graph_mode window")
+        return cfg
     spans = [ld.required_halo(cfg.graph.delta_r)
              for ld in (loaders or []) if len(ld)]
     halo = (max(spans) if spans
@@ -65,18 +66,29 @@ def apply_graph_mode(cfg: Config, args, all_events, presorted: bool = False,
                                        window_halo=halo, presorted=presorted))
 
 
+def check_from_torch(args) -> None:
+    """``--from_torch`` reads GraphMETNetwork state_dicts only."""
+    if args.from_torch and args.model != "graphmet":
+        raise SystemExit(
+            "--from_torch checkpoints are GraphMETNetwork state_dicts "
+            "(reference model/net.py:41-43); use --model graphmet")
+
+
 def load_model_for_eval(args, cfg: Config, ckpt_dir: str, device):
-    """(model, eval_step) from a native ``.ckpt`` of either package, for
-    ``--model graphmet`` (GraphMET) or ``--model drn`` (DRN)."""
+    """(model, eval_step) from a reference ``.pth.tar`` (``--from_torch``,
+    GraphMET only) or a native ``.ckpt`` of either package, for ``--model
+    graphmet`` (GraphMET) or ``--model drn`` (DRN)."""
     from deepmetv2_tpu_torch.train.checkpoint import load_checkpoint
 
+    check_from_torch(args)
     if args.from_torch:
-        if args.model != "graphmet":
-            raise SystemExit(
-                "--from_torch checkpoints are GraphMETNetwork state_dicts "
-                "(reference model/net.py:41-43); use --model graphmet")
-        raise SystemExit("--from_torch: not ported yet")
-    payload = load_checkpoint(osp.join(ckpt_dir, args.restore_file + ".ckpt"))
+        from deepmetv2_tpu_torch.compat import import_torch_checkpoint
+
+        params, bn_state, _ = import_torch_checkpoint(args.from_torch)
+        payload = {"params": params, "bn_state": bn_state}
+    else:
+        payload = load_checkpoint(osp.join(ckpt_dir,
+                                           args.restore_file + ".ckpt"))
     if args.model == "drn":
         from deepmetv2_tpu_torch.models.drn import DRN
         from deepmetv2_tpu_torch.train.step import make_drn_eval_step

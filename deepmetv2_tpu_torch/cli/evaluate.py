@@ -2,9 +2,13 @@
 
     python -m deepmetv2_tpu_torch.cli.evaluate --data data_dytt \
         --ckpts ckpts_dytt --restore_file best [--model drn] [--device cpu]
+        [--graph_mode neighbor_list] [--from_torch best.pth.tar]
 
-Loads a checkpoint, runs the validation split, writes
-``<restore_file>.resolutions`` next to it and prints the validation loss.
+Loads a checkpoint (a native ``.ckpt``, or a reference ``.pth.tar`` with
+``--from_torch``, which may name a fresh ``--ckpts`` directory for the
+artifacts), runs the validation split, writes
+``<restore_file>.resolutions`` into ``--ckpts`` and prints the validation
+loss.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ def run(argv=None):
     # the halo is sized on the WHOLE dataset, as the JAX CLI does
     cfg = apply_graph_mode(cfg, args, loaders["test"].dataset)
 
-    os.makedirs(args.ckpts, exist_ok=True)
+    os.makedirs(args.ckpts, exist_ok=True)   # a --from_torch run's may be new
     model, eval_step = load_model_for_eval(args, cfg, args.ckpts, device)
     test_metrics, resolutions = evaluate(model, eval_step, loaders["test"],
                                          cfg, device)

@@ -1,7 +1,8 @@
 """Batch inference CLI — the serving surface:
 
     python -m deepmetv2_tpu_torch.cli.predict --ckpts ckpts \
-        --restore_file best --data data_znunu --out predictions.npz
+        --restore_file best --data data_znunu --out predictions.npz \
+        [--graph_mode neighbor_list] [--from_torch best.pth.tar]
 
 Runs the model over ALL events (no split) and writes one npz with
 ``event_index, met_x, met_y, met, met_phi, n_valid`` per event, row i being

@@ -9,16 +9,19 @@
         --bn_refresh 30 --ckpts ckpts_drn [--restore_file last] [--device cpu]
 
 GraphMET in window mode: the loaders presort each batch on the host (cell
-order by default), the halo is sized from the order they emit.  The DRN
-(``--model drn``): no presort (it builds its own graphs), ``datanorm`` set
-to 1/std of each feature over the training candidates and the output scale
-to the training set's mean |genMET|, as the JAX CLI does.  AdamW with the
-plateau scheduler trains either on one device, through the config's feed
-(chains of ``chain_steps`` = 8 steps as CUDA graph replays, the epoch
-resident on the device; the line "feed: ..." names it), as the JAX CLI
-has no flag for it; ``--restore_file`` resumes from a checkpoint of
-either package.  The JAX flags of paths not ported
-yet are accepted and exit non-zero with "not ported yet".
+order by default), the halo is sized from the order they emit.  GraphMET
+with ``--graph_mode neighbor_list``: no presort; each step builds the
+radius graph's lists (capped at 256, self-loops).  The DRN (``--model
+drn``): no presort (it builds its own graphs), ``datanorm`` set to 1/std
+of each feature over the training candidates and the output scale to the
+training set's mean |genMET|, as the JAX CLI does.  AdamW with the plateau
+scheduler trains either on one device, through the config's feed (chains
+of ``chain_steps`` = 8 steps as CUDA graph replays, the epoch resident on
+the device; the line "feed: ..." names it), as the JAX CLI has no flag
+for it; ``--restore_file`` resumes from a checkpoint of either package,
+``--from_torch`` warm-starts GraphMET from a reference ``.pth.tar``.  The
+JAX flags of paths not ported yet are accepted and exit non-zero with "not
+ported yet".
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from deepmetv2_tpu_torch.cli.common import apply_graph_mode, resolve_device
+from deepmetv2_tpu_torch.cli.common import (apply_graph_mode,
+                                            check_from_torch, resolve_device)
 from deepmetv2_tpu_torch.config import Config, DataConfig
 from deepmetv2_tpu_torch.data import fetch_dataloader, synthetic_events
 from deepmetv2_tpu_torch.models.drn import DRN
@@ -76,11 +80,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--drn_head", choices=["polar", "cartesian"], default=None,
                    help="DRN output head (default polar)")
     p.add_argument("--graph_mode", choices=["window", "neighbor_list"],
-                   default="window")
+                   default="window",
+                   help="'window': implicit sorted-order radius graph (the "
+                        "window kernels); 'neighbor_list': explicit lists "
+                        "capped at the nearest 256 (reference train.py:48)")
+    p.add_argument("--from_torch", default=None,
+                   help="warm-start from a reference .pth.tar checkpoint")
     # the JAX package's flags of paths that are not ported yet
     p.add_argument("--compute_dtype", choices=["float32", "bfloat16"],
                    default=None)
-    p.add_argument("--from_torch", default=None)
     p.add_argument("--mesh", default=None, metavar="DxN")
     p.add_argument("--ring_knn", action="store_true")
     return p
@@ -89,11 +97,9 @@ def build_parser() -> argparse.ArgumentParser:
 def unported(args) -> list:
     """The flags given that select a path the port does not have yet."""
     out = []
-    if args.graph_mode != "window":
-        out.append(f"--graph_mode {args.graph_mode}")
     if args.compute_dtype not in (None, "float32"):
         out.append(f"--compute_dtype {args.compute_dtype}")
-    for flag in ("from_torch", "mesh", "ring_knn"):
+    for flag in ("mesh", "ring_knn"):
         if getattr(args, flag):
             out.append(f"--{flag}")
     return out
@@ -126,6 +132,7 @@ def main(argv=None) -> int:
     if bad:
         raise SystemExit(f"{', '.join(bad)}: not ported yet (the JAX package "
                          "deepmetv2_tpu.cli.train has it)")
+    check_from_torch(args)
     device = resolve_device(args.device)
 
     cfg = Config(data=DataConfig(batch_size=args.batch_size))
@@ -151,14 +158,16 @@ def main(argv=None) -> int:
               "training (softplus MET -> 0, sigmoid phi -> pi); "
               "--drn_head cartesian is the robust choice")
 
-    # GraphMET: the loaders presort each batch once on the host (memoized)
-    # and the config is marked presorted, so the steps never sort on the
-    # device.  The DRN builds its own graphs: no presort.
+    # GraphMET in window mode: the loaders presort each batch once on the
+    # host (memoized) and the config is marked presorted, so the steps never
+    # sort on the device.  neighbor_list mode needs no order, and the DRN
+    # builds its own graphs: no presort.
     sort_mode = args.sort_mode or "cell"
+    presort = args.graph_mode == "window" and not is_drn
     kw = dict(batch_size=cfg.data.batch_size,
               validation_split=cfg.data.validation_split,
               buckets=cfg.data.node_buckets, mode=args.mode,
-              presort_eta=not is_drn, presort_mode=sort_mode,
+              presort_eta=presort, presort_mode=sort_mode,
               presort_r=cfg.graph.delta_r)
     if args.synthetic:
         loaders = fetch_dataloader(events=synthetic_events(args.synthetic,
@@ -166,11 +175,12 @@ def main(argv=None) -> int:
     else:
         loaders = fetch_dataloader(data_dir=args.data, **kw)
     cfg = apply_graph_mode(
-        cfg, args, loaders["train"].dataset, presorted=not is_drn,
-        loaders=None if is_drn else [loaders["train"], loaders["test"]])
+        cfg, args, loaders["train"].dataset, presorted=presort,
+        loaders=[loaders["train"], loaders["test"]] if presort else None)
     print(len(loaders["train"]), len(loaders["test"]))
-    print(f"graph mode: window (halo {cfg.graph.window_halo}, order "
-          f"{'eta (device sort)' if is_drn else sort_mode})")
+    if cfg.graph.mode == "window":
+        print(f"graph mode: window (halo {cfg.graph.window_halo}, order "
+              f"{sort_mode if presort else 'eta (device sort)'})")
     print("device:", device,
           torch.cuda.get_device_name(device) if device.type == "cuda" else "")
     print(feed_line(cfg, device))
@@ -187,6 +197,11 @@ def main(argv=None) -> int:
         model = DRN(cfg.drn, generator=gen, norm=norm, met_bias=met_bias)
     else:
         model = GraphMET(cfg.model, generator=gen)
+        if args.from_torch:
+            from deepmetv2_tpu_torch.compat import import_torch_checkpoint
+
+            params, bn_state, _ = import_torch_checkpoint(args.from_torch)
+            model.params_from_jax(params, bn_state)
     model.to(device)
     optimizer = make_optimizer(cfg, model)
     fit(model, optimizer, cfg, loaders["train"], loaders["test"], args.ckpts,

@@ -22,8 +22,10 @@ class GraphConfig:
     max_neighbors: int = 256
     self_loops: bool = True
     phi_wraparound: bool = False    # the reference's metric has no phi wrap
-    # 'window' (implicit eta-sorted radius graph, the ported path) or
-    # 'neighbor_list' (explicit lists, not ported yet)
+    # 'neighbor_list' (explicit lists capped at max_neighbors, the
+    # reference's graph) or 'window' (implicit eta-sorted radius graph,
+    # uncapped, through the window kernels; window_halo must cover the
+    # data's sorted-order neighbour span)
     mode: str = "neighbor_list"
     window_halo: int = 128          # >= data/sorting.required_halo
     presorted: bool = False         # batches arrive already eta-sorted
@@ -39,13 +41,12 @@ class ModelConfig:
     conv_depth: int = 2
     output_dim: int = 1
     pdgs: Tuple[int, ...] = (1, 2, 11, 13, 22, 130, 211)
-    compute_dtype: str = "float32"  # 'bfloat16' is not ported yet
+    compute_dtype: str = "float32"  # 'bfloat16' is not ported yet (A6)
 
 
 @dataclasses.dataclass(frozen=True)
 class DRNConfig:
-    """DynamicReductionNetwork hyperparameters (models/drn.py; evaluation
-    is ported, training is not yet)."""
+    """DynamicReductionNetwork hyperparameters (models/drn.py)."""
 
     input_dim: int = 11
     hidden_dim: int = 64

@@ -3,11 +3,14 @@ package's ``models/drn.py``; reference model/dynamic_reduction_network.py:
 27-103).
 
 Per reduction round (``pool_rounds``, 2 in ``ckpts_syn_drn``):
-  1. the symmetrized feature-space kNN graph of the current features (the
-     fused build, ops/dyn_graph.py);
+  1. the symmetrized feature-space kNN graph of the current features
+     (ops/dyn_graph.py: the fused build where it applies, else the
+     composed one);
   2. EdgeConv with the edge MLP Linear(2H→3H/2)+ELU+Linear(3H/2→H)+ELU and
-     BatchNorm over the valid edge messages, aggregated by ``aggr`` (the
-     fused conv, ops/cuda/edge_mlp.py);
+     BatchNorm over the valid edge messages, aggregated by ``aggr``: the
+     fused conv (ops/cuda/edge_mlp.py) for the shapes it takes, else the
+     gather-reduce form in plain PyTorch (``_xla_edgeconv``, the JAX
+     package's XLA form);
   3. normalized-cut handshake matching and cluster-max pooling, then (with
      ``compact_pool``, between rounds) the representatives gathered into
      the front 3N/4 slots.
@@ -16,8 +19,10 @@ cartesian head.
 
 In training mode (``model.train()``) each round's BatchNorm normalizes
 with the batch statistics of the valid edge messages and updates its
-running buffers as the JAX package does; the gradient runs through the
-edge-MLP backward kernel (ops/cuda/edge_mlp.py:EdgeMLP).  The constructor
+running buffers as the JAX package does; the fused conv's gradient runs
+through the edge-MLP backward kernel (ops/cuda/edge_mlp.py:EdgeMLP), the
+gather-reduce form's through autograd (a mirror gather with
+``mirror_gather``).  The constructor
 is the JAX package's ``drn_init``: the data-derived ``datanorm`` (a
 trainable parameter, as there) and, for the polar head, the softplus⁻¹
 ``met_bias`` of the MET logit.
@@ -38,12 +43,13 @@ from torch import nn
 from deepmetv2_tpu_torch.config import DRNConfig
 from deepmetv2_tpu_torch.data.batching import EventBatch, Neighborhood
 from deepmetv2_tpu_torch.models.layout import JaxLayout
-from deepmetv2_tpu_torch.nn.core import MLP, MaskedBatchNorm
+from deepmetv2_tpu_torch.nn.core import MLP, MaskedBatchNorm, elu
 from deepmetv2_tpu_torch.ops import edge_mlp
 from deepmetv2_tpu_torch.ops.coarsen import global_max_pool, max_pool
 from deepmetv2_tpu_torch.ops.cuda.edge_mlp import edge_mlp_conv
 from deepmetv2_tpu_torch.ops.dyn_graph import build_dyn_graph, cut_matching
-from deepmetv2_tpu_torch.ops.segment import batched_take
+from deepmetv2_tpu_torch.ops.segment import (batched_take, gather_neighbors,
+                                             gather_neighbors_mirror)
 
 # The DRN's default input scales (reference model/net.py:20-31), in the
 # data pipeline's feature order [px, py, pt, eta, d0, dz, mass,
@@ -118,19 +124,73 @@ class DRN(JaxLayout):
         return drn_apply(self, x, mask, diag)
 
 
+def _edge_batchnorm(bn: MaskedBatchNorm, msgs: torch.Tensor,
+                    edge_mask: torch.Tensor, train: bool,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """BatchNorm over the valid edge messages ``msgs [B, N, K, H]`` (the
+    reference's BatchNorm1d on the ``[E, H]`` message matrix): in
+    training, the biased statistics of the valid messages, folded into the
+    running buffers (n the number of valid edges), as the JAX package's
+    ``_edge_batchnorm`` does."""
+    if train:
+        m = edge_mask[..., None]
+        n = torch.clamp(m.sum(), min=1).to(msgs.dtype)
+        zero = torch.zeros((), dtype=msgs.dtype, device=msgs.device)
+        mean = torch.where(m, msgs, zero).sum(dim=(0, 1, 2)) / n
+        diff = torch.where(m, msgs - mean, zero)
+        var = (diff * diff).sum(dim=(0, 1, 2)) / n
+        bn.update_running(mean, var, n)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    return (msgs - mean) * torch.rsqrt(var + eps) * bn.gamma + bn.beta
+
+
+def _xla_edgeconv(conv: DRNConv, x: torch.Tensor, nbr: Neighborhood,
+                  aggr: str, train: bool, gather) -> torch.Tensor:
+    """The round's EdgeConv as a gather and masked reduce (JAX
+    models/drn.py:205-229): the first layer factored into ``a_i + c_j``
+    with ``c`` gathered by ``gather(c, nbr)``, ELU after every layer, the
+    edge BatchNorm, then the masked max, sum ('add') or mean over the
+    slots (0 for a node without one)."""
+    layers = conv.mlp.layers
+    H = x.shape[-1]
+    w0 = layers[0].w
+    a = torch.matmul(x, w0[:H] - w0[H:]) + layers[0].b
+    c = torch.matmul(x, w0[H:])
+    h = elu(a[:, :, None, :] + gather(c, nbr))            # [B, N, K, F]
+    for lin in layers[1:]:
+        h = elu(lin(h))
+    h = _edge_batchnorm(conv.bn, h, nbr.mask, train)
+    m = nbr.mask[..., None]
+    if aggr == "max":
+        out = torch.amax(torch.where(m, h, torch.full_like(h, -torch.inf)),
+                         dim=2)
+        return torch.where(m.any(dim=2), out, torch.zeros_like(out))
+    s = torch.where(m, h, torch.zeros_like(h)).sum(dim=2)
+    if aggr == "add":
+        return s
+    if aggr == "mean":
+        return s / torch.clamp(m.sum(dim=2), min=1)
+    raise ValueError(f"unknown aggr {aggr!r}")
+
+
 def _drn_edgeconv(conv: DRNConv, x: torch.Tensor, nbr: Neighborhood,
-                  aggr: str, train: bool) -> torch.Tensor:
-    """The round's EdgeConv in its fused form; shapes the fused conv does
-    not take raise.  ``train`` normalizes with the batch statistics of the
-    valid edge messages and updates the running buffers as the JAX package
-    does (models/drn.py:193-204), n being the number of valid edges."""
+                  aggr: str, train: bool, gather=gather_neighbors,
+                  force: Optional[str] = None) -> torch.Tensor:
+    """The round's EdgeConv: the fused conv for the two-layer MLP at the
+    shapes it takes (``edge_mlp.supported``), else, or with ``force``
+    'xla', ``_xla_edgeconv`` through ``gather``.  ``train`` normalizes
+    with the batch statistics of the valid edge messages and updates the
+    running buffers as the JAX package does (models/drn.py:193-204), n
+    being the number of valid edges."""
+    if force not in (None, "fused", "xla"):
+        raise ValueError(f"conv force={force!r}: None, 'fused' or 'xla'")
     layers = conv.mlp.layers
     H, K = x.shape[-1], nbr.idx.shape[-1]
     F1, H2 = layers[0].w.shape[-1], layers[-1].w.shape[-1]
-    if len(layers) != 2 or not edge_mlp.supported(K, H, F1, H2):
-        raise NotImplementedError(
-            f"DRN EdgeConv with {len(layers)} layers at K={K}, H={H}, "
-            f"F1={F1}, H2={H2}: not ported yet (XLA form)")
+    if (force == "xla" or len(layers) != 2
+            or not edge_mlp.supported(K, H, F1, H2)):
+        return _xla_edgeconv(conv, x, nbr, aggr, train, gather)
     bn = conv.bn
     out, mean, var = edge_mlp_conv(x, nbr, conv.mlp.params(), bn.gamma,
                                    bn.beta, bn.running_mean, bn.running_var,
@@ -173,19 +233,28 @@ def compact_dropped(mask: torch.Tensor) -> torch.Tensor:
 
 
 def drn_apply(model: DRN, x: torch.Tensor, mask: torch.Tensor,
-              diag: Optional[dict] = None) -> torch.Tensor:
+              diag: Optional[dict] = None, graph_force: Optional[str] = None,
+              conv_force: Optional[str] = None) -> torch.Tensor:
     """Forward → per-event outputs ``[B, output_dim]`` (reference
     model/dynamic_reduction_network.py:82-103).  ``diag``, if given,
     collects ``compact_dropped`` per compaction and, under ``rounds``, each
     round's graph decisions ``(mask, nbr, cluster, partner)``.  The model's
     mode picks the BatchNorm statistics (``model.train()``: the batch's,
-    and the running buffers update)."""
+    and the running buffers update).  ``graph_force`` ('fused' or
+    'composed') pins the graph build, ``conv_force`` ('fused' or 'xla')
+    the conv, as the JAX package's arguments do; None picks by shape."""
     cfg = model.cfg
     h = model.inputnet(model.datanorm * x, final_act=True)
     for r, conv in enumerate(model.convs):
         g = build_dyn_graph(h, mask, k=cfg.k, cap=cfg.und_cap,
-                            want_mirror=cfg.mirror_gather)
-        h = _drn_edgeconv(conv, h, g.nbr, cfg.aggr, model.training)
+                            want_mirror=cfg.mirror_gather, force=graph_force)
+        gather = gather_neighbors
+        if g.mirror is not None:
+            # a symmetric list: the gather's backward is a gather too
+            gather = (lambda v, n, mirror=g.mirror:
+                      gather_neighbors_mirror(v, n, mirror))
+        h = _drn_edgeconv(conv, h, g.nbr, cfg.aggr, model.training, gather,
+                          conv_force)
         cluster, partner = cut_matching(g, h, mask)
         if diag is not None:
             diag.setdefault("rounds", []).append((mask, g.nbr, cluster,
@@ -200,13 +269,15 @@ def drn_apply(model: DRN, x: torch.Tensor, mask: torch.Tensor,
 
 
 def drn_net_apply(model: DRN, batch: EventBatch,
-                  diag: Optional[dict] = None) -> torch.Tensor:
+                  diag: Optional[dict] = None,
+                  graph_force: Optional[str] = None,
+                  conv_force: Optional[str] = None) -> torch.Tensor:
     """The head on ``drn_apply``: 'cartesian' gives (METx, METy) scaled by
     ``output_scale``; 'polar' gives (MET, φ) with MET = scale·softplus and
     φ = π·(2·sigmoid − 1)."""
     cfg = model.cfg
     x = torch.cat([batch.x_cont, batch.x_cat.to(batch.x_cont.dtype)], dim=-1)
-    out = drn_apply(model, x, batch.mask, diag)
+    out = drn_apply(model, x, batch.mask, diag, graph_force, conv_force)
     if cfg.head == "cartesian":
         return cfg.output_scale * out[:, 0:2]
     met = cfg.output_scale * torch.logaddexp(out[:, 0:1],

@@ -1,25 +1,30 @@
 """The DRN's per-round dynamic graph and its coarsening matching (the JAX
-package's ``ops/dyn_graph.py``, fused strategy).
+package's ``ops/dyn_graph.py``).
 
 Each reduction round builds the symmetrized feature-space kNN graph of the
-current features with the fused build (ops/cuda/knn_und.py: two kernels on
-the card, their plain versions on the CPU) and matches on the post-conv
-features with normalized-cut weights.  Up to ``DENSE_W_MAX_ELEMS`` elements
-of ``[B, N, N]`` the matching runs on the extraction's own threshold
-relation (``rel``), its weights built whole up to ``DENSE_MATCH_MAX_N``
-nodes and above it in column tiles; past that on the neighbour lists.  The
-relation is never recomputed: each row's k-th neighbour lies exactly at
-its threshold in the kernels' d² arithmetic, so any other summation order
-drops or adds pairs.
+current features and matches on the post-conv features with normalized-cut
+weights.  Two builds, as in the JAX package:
 
-Only the fused strategy is ported: shapes the JAX fused build does not
-take (N not a multiple of 128, cap above 128) raise rather than silently
-taking the composed path, whose graph differs at hubs (ROADMAP C).
-``want_mirror`` (``mirror_gather``) keeps only the listed edges whose
-reverse edge is listed too, which makes the list symmetric, and carries
-its mirror-slot table as the JAX package's graph does (the port's EdgeConv
-backward sums x's gradient through a reverse index on every list).  The
-``[B, N, N]`` products outside the kernels are ``torch.matmul`` in full
+* fused: ops/cuda/knn_und.py (two kernels on the card, their plain
+  versions on the CPU), for N a multiple of 128 and a cap of at most 128.
+  Up to ``DENSE_W_MAX_ELEMS`` elements of ``[B, N, N]`` the matching runs
+  on the extraction's own threshold relation (``rel``), its weights built
+  whole up to ``DENSE_MATCH_MAX_N`` nodes and above it in column tiles;
+  past that on the neighbour lists.  The relation is never recomputed:
+  each row's k-th neighbour lies exactly at its threshold in the kernels'
+  d² arithmetic, so any other summation order drops or adds pairs.
+* composed: ``to_undirected(knn_graph(h, mask, k), cap)`` (ops/graph.py)
+  in plain PyTorch, for every other shape.  Its graph differs from the
+  fused one at hubs (the fused build keeps each row's nearest ``cap``
+  members, the composed one drops the highest-indexed mutually).  Up to
+  ``DENSE_MATCH_MAX_N`` nodes the matching's adjacency is scattered from
+  the lists and its weights are the pairwise ones; above, the list
+  matching.
+
+``want_mirror`` (``mirror_gather``) adds the lists' mirror-slot table; on
+the fused build it also keeps only the listed edges whose reverse edge is
+listed, which makes the list symmetric (the composed list is symmetric by
+construction).  The ``[B, N, N]`` products are ``torch.matmul`` in full
 f32 (callers keep TF32 off).
 """
 
@@ -35,6 +40,7 @@ from deepmetv2_tpu_torch.ops.coarsen import (handshake_matching,
                                              handshake_matching_dense,
                                              normalized_cut_weights)
 from deepmetv2_tpu_torch.ops.cuda.knn_und import knn_und_graph
+from deepmetv2_tpu_torch.ops.graph import knn_graph, to_undirected
 from deepmetv2_tpu_torch.ops.knn_und import supported
 from deepmetv2_tpu_torch.ops.segment import mirror_slots_sorted
 
@@ -55,34 +61,39 @@ def dense_matching(B: int, N: int) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class DynGraph:
-    """One round's graph: the neighbour lists, each listed edge's d²
-    ``[B, N, cap]``, the k-th-neighbour thresholds ``t [B, N]``, where the
-    dense matching runs (``dense_matching``) the threshold relation ``rel
-    [B, N, N]`` bool, and with ``want_mirror`` the mirror-slot table
-    ``mirror [B, N, cap]`` int32 (ops/segment.py:mirror_slots_sorted)."""
+    """One round's graph: the neighbour lists; from the fused build each
+    listed edge's d² ``[B, N, cap]``, the k-th-neighbour thresholds ``t
+    [B, N]`` and, where the dense matching runs (``dense_matching``), the
+    threshold relation ``rel [B, N, N]`` bool (None from the composed
+    build); with ``want_mirror`` the mirror-slot table ``mirror [B, N,
+    cap]`` int32 (ops/segment.py:mirror_slots_sorted)."""
 
     nbr: Neighborhood
-    d2v: torch.Tensor
-    t: torch.Tensor
+    d2v: Optional[torch.Tensor] = None
+    t: Optional[torch.Tensor] = None
     rel: Optional[torch.Tensor] = None
     mirror: Optional[torch.Tensor] = None
 
 
 def build_dyn_graph(h: torch.Tensor, mask: torch.Tensor, k: int = 16,
-                    cap: Optional[int] = None,
-                    want_mirror: bool = False) -> DynGraph:
+                    cap: Optional[int] = None, want_mirror: bool = False,
+                    force: Optional[str] = None) -> DynGraph:
     """The symmetrized kNN graph of ``h`` (``to_undirected(knn_graph(h,
-    mask, k))``, capped at ``cap``, default 2k) by the fused build.  Never
-    differentiable.  ``want_mirror`` intersects the slot mask with the
-    edges whose reverse is listed and adds the mirror table (JAX
+    mask, k))``, capped at ``cap``, default 2k).  ``force``: None takes the
+    fused build where it applies (``supported``), the composed one
+    elsewhere; 'fused' or 'composed' pins one.  Never differentiable.
+    ``want_mirror`` adds the mirror table; on the fused build it also
+    intersects the slot mask with the edges whose reverse is listed (JAX
     dyn_graph.py:144-148)."""
+    if force not in (None, "fused", "composed"):
+        raise ValueError(f"force={force!r}: None, 'fused' or 'composed'")
     cap = 2 * k if cap is None else cap
-    if not supported(h.shape[1], cap):
-        raise NotImplementedError(
-            f"dynamic graph at N={h.shape[1]}, cap={cap}: not ported yet "
-            "(composed path); the fused build takes N a multiple of 128 "
-            "and cap <= 128")
     h = h.detach()
+    if force == "composed" or (force is None
+                               and not supported(h.shape[1], cap)):
+        nbr = to_undirected(knn_graph(h, mask, k=k, loop=False), cap=cap)
+        mirror = mirror_slots_sorted(nbr)[0] if want_mirror else None
+        return DynGraph(nbr=nbr, mirror=mirror)
     if dense_matching(*mask.shape):
         nbr, d2v, t, rel = knn_und_graph(h, mask, k=k, cap=cap,
                                          want_rel=True)
@@ -95,11 +106,21 @@ def build_dyn_graph(h: torch.Tensor, mask: torch.Tensor, k: int = 16,
     return DynGraph(nbr=nbr, d2v=d2v, t=t, rel=rel)
 
 
+def _list_relation(nbr: Neighborhood) -> torch.Tensor:
+    """``[B, N, N]`` bool: True where j is a valid slot of i's list."""
+    B, N, _ = nbr.idx.shape
+    U = torch.zeros((B, N, N + 1), dtype=torch.bool, device=nbr.idx.device)
+    cols = torch.where(nbr.mask, nbr.idx, torch.full_like(nbr.idx, N))
+    U.scatter_(2, cols.long(), True)
+    return U[:, :, :N]
+
+
 def _tiled_cut_weights(rel: torch.Tensor, h: torch.Tensor,
                        tile_c: int = DENSE_TILE_C) -> torch.Tensor:
-    """The ``[B, N, N]`` normalized-cut weight matrix of the extraction's
-    threshold relation ``rel`` (bool), built in ``[B, N, tile_c]`` column
-    tiles (one, not copied, when ``tile_c >= N``): the weights
+    """The ``[B, N, N]`` normalized-cut weight matrix of a relation ``rel``
+    (bool: the extraction's threshold relation, or a composed graph's
+    lists as ``_list_relation`` gives them), built in ``[B, N, tile_c]``
+    column tiles (one, not copied, when ``tile_c >= N``): the weights
     dist(h)·(1/deg_i + 1/deg_j) on the relation, −inf elsewhere, with the
     degrees counted from ``rel`` (whose padded rows and columns are zero;
     the matching masks padded rows itself)."""
@@ -121,14 +142,20 @@ def cut_matching(g: DynGraph, h: torch.Tensor, mask: torch.Tensor,
                  rounds: int = 4):
     """Normalized-cut-weighted handshake matching on ``g`` with the
     post-conv features ``h``: ``(cluster, partner)``.  Discrete, no
-    gradient."""
+    gradient.  The fused graph's dense matching reads its relation (the
+    build emits one wherever ``dense_matching`` holds); the composed
+    graph's, up to ``DENSE_MATCH_MAX_N`` nodes, the relation of its lists
+    (JAX dyn_graph.py:238-262: the degree is the list's, which equals the
+    relation's row count since a list is distinct, and the distances the
+    pairwise |a|² + |b|² − 2a·b); otherwise the lists."""
     h = h.detach()
-    B, N = mask.shape
-    if dense_matching(B, N):
-        if g.rel is None:
-            raise ValueError("cut_matching: the graph carries no relation")
+    N = mask.shape[1]
+    if g.rel is not None:
         tile_c = N if N <= DENSE_MATCH_MAX_N else DENSE_TILE_C
         W = _tiled_cut_weights(g.rel, h, tile_c)
+        return handshake_matching_dense(W, mask, rounds=rounds)
+    if N <= DENSE_MATCH_MAX_N:
+        W = _tiled_cut_weights(_list_relation(g.nbr), h, N)
         return handshake_matching_dense(W, mask, rounds=rounds)
     w = normalized_cut_weights(h, g.nbr)
     return handshake_matching(w, g.nbr, mask, rounds=rounds)

@@ -11,15 +11,17 @@ be captured as one CUDA graph (train/chain.py).
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Iterable, Optional, Tuple
 
 import torch
 
 from deepmetv2_tpu_torch.config import Config
-from deepmetv2_tpu_torch.data.batching import EventBatch
+from deepmetv2_tpu_torch.data.batching import EventBatch, Neighborhood
 from deepmetv2_tpu_torch.data.sorting import sort_by_eta
 from deepmetv2_tpu_torch.models.drn import drn_net_apply
 from deepmetv2_tpu_torch.models.graph_met import GraphMET, net_apply
+from deepmetv2_tpu_torch.ops.graph import radius_graph
 from deepmetv2_tpu_torch.ops.window import WindowGraph
 from deepmetv2_tpu_torch.train.loss import (drn_loss_fn, drn_met_vector,
                                             loss_fn)
@@ -79,23 +81,36 @@ def clip_by_global_norm(params: Iterable[torch.Tensor],
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
+def _etaphi(batch: EventBatch) -> torch.Tensor:
+    """``[B, N, 2]`` (eta, phi = atan2(py, px)) of a batch."""
+    phi = torch.atan2(batch.x_cont[..., 1], batch.x_cont[..., 0])
+    return torch.stack([batch.x_cont[..., 3], phi], dim=-1)
+
+
 def window_graph(batch: EventBatch, cfg: Config) -> WindowGraph:
     """The implicit radius graph of a batch in its current order, over
-    (eta, phi = atan2(py, px))."""
+    (eta, phi)."""
     if cfg.graph.mode != "window":
-        raise NotImplementedError(
-            f"graph mode {cfg.graph.mode!r} is not ported yet; use 'window'")
-    phi = torch.atan2(batch.x_cont[..., 1], batch.x_cont[..., 0])
-    etaphi = torch.stack([batch.x_cont[..., 3], phi], dim=-1)
-    return WindowGraph(etaphi, batch.mask, r=cfg.graph.delta_r,
+        raise ValueError(f"window_graph in graph mode {cfg.graph.mode!r}")
+    return WindowGraph(_etaphi(batch), batch.mask, r=cfg.graph.delta_r,
                        halo=cfg.graph.window_halo)
 
 
 def build_graph(batch: EventBatch, cfg: Config
-                ) -> Tuple[EventBatch, WindowGraph]:
-    """Window mode (reference train.py:44-48): the batch comes back
-    eta-sorted (unless ``cfg.graph.presorted``) with its graph."""
-    if not cfg.graph.presorted:
+                ) -> Tuple[EventBatch, "WindowGraph | Neighborhood"]:
+    """The batch's graph in (eta, phi) (reference train.py:44-48).  Window
+    mode: the batch comes back eta-sorted (unless ``cfg.graph.presorted``)
+    with its implicit graph.  neighbor_list mode: the batch comes back as
+    it is, with the radius graph's lists, capped at the nearest
+    ``max_neighbors`` (self-loops with ``self_loops``, phi wrapped with
+    ``phi_wraparound``)."""
+    g = cfg.graph
+    if g.mode != "window":
+        wrap = (0.0, 2 * math.pi) if g.phi_wraparound else None
+        return batch, radius_graph(_etaphi(batch), batch.mask, r=g.delta_r,
+                                   k=g.max_neighbors, loop=g.self_loops,
+                                   wrap_axes=wrap)
+    if not g.presorted:
         batch, _ = sort_by_eta(batch)
     return batch, window_graph(batch, cfg)
 
@@ -125,8 +140,8 @@ def _step(cfg: Config, objective: Callable) -> Callable:
 
 
 def graphmet_objective(cfg: Config) -> Callable:
-    """GraphMET's ``(model, batch) -> loss``: sort unless presorted, build
-    the graph, ``loss_fn`` on the weights."""
+    """GraphMET's ``(model, batch) -> loss``: ``build_graph`` (in window
+    mode it sorts unless presorted), ``loss_fn`` on the weights."""
 
     def objective(model: GraphMET, batch: EventBatch) -> torch.Tensor:
         batch, graph = build_graph(batch, cfg)
@@ -173,13 +188,14 @@ def make_bn_refresh_step(objective: Callable) -> Callable:
 
 def eval_step_body(cfg: Config) -> Callable:
     """``(model, batch) -> (v_met [B, 2], loss, weights)`` with the
-    weights in the CALLER's candidate order and ``v_met = −Σ wᵢpᵢ``.
-    Unless the batch is presorted, the forward runs on the eta-sorted batch
-    and the weights come back through the inverse permutation; a presorted
-    batch runs in its own order."""
+    weights in the CALLER's candidate order and ``v_met = −Σ wᵢpᵢ``.  In
+    window mode, unless the batch is presorted, the forward runs on the
+    eta-sorted batch and the weights come back through the inverse
+    permutation; a presorted batch, and every batch in neighbor_list mode,
+    runs in its own order."""
 
     def eval_step(model: GraphMET, batch: EventBatch):
-        if cfg.graph.presorted:
+        if cfg.graph.mode != "window" or cfg.graph.presorted:
             batch, graph = build_graph(batch, cfg)
             w = net_apply(model, batch, graph)
             return _neg_weighted_met(w, batch), loss_fn(w, batch), w

@@ -8,7 +8,8 @@ adjacency (ROADMAP C).
 
 ``jax_drn_eval(2000, 8)`` recomputes ``chip_smoke.GOLDEN_DRN_LOSS`` and the
 per-event files ``tests/golden_drn_val_{met,graphs}.npy`` (about 10 s per
-batch of 8 at N=2048 on the CPU); ``drn_divergence(2000, 8)`` counts the
+batch of 8 at N=2048 on the CPU); ``jax_drn_eval(2000, 8, fused=False)``
+the composed path's ``tests/golden_drn_composed_val_{met,graphs}.npy``; ``drn_divergence(2000, 8)`` counts the
 events whose graph decisions differ between the packages (ROADMAP C).
 """
 
@@ -39,10 +40,12 @@ def _jax_drn(restore_file: str = "best"):
     return params, bn_state, cfg
 
 
-def _jax_fused_apply(cfg):
-    """JAX ``drn_net_apply`` with both fused paths in interpret mode:
-    ``(pred, rounds)``, with ``rounds`` each round's (mask, idx, slot mask,
-    cluster, partner) as its ``cut_matching`` sees and returns them."""
+def _jax_fused_apply(cfg, fused: bool = True):
+    """JAX ``drn_net_apply`` with both fused paths in interpret mode
+    (``fused=False``: its CPU default, the composed build and the XLA-form
+    conv): ``(pred, rounds)``, with ``rounds`` each round's (mask, idx,
+    slot mask, cluster, partner) as its ``cut_matching`` sees and returns
+    them."""
     import functools
     from unittest import mock
 
@@ -51,9 +54,11 @@ def _jax_fused_apply(cfg):
     from deepmetv2_tpu.models.drn import drn_net_apply
     from deepmetv2_tpu.ops import dyn_graph as jdg
 
-    net = functools.partial(
-        drn_net_apply, train=False, cfg=cfg.drn, graph_force="fused",
-        graph_interpret=True, conv_force="fused", conv_interpret=True)
+    forces = (dict(graph_force="fused", graph_interpret=True,
+                   conv_force="fused", conv_interpret=True) if fused
+              else {})
+    net = functools.partial(drn_net_apply, train=False, cfg=cfg.drn,
+                            **forces)
     match = jdg.cut_matching
 
     def apply(params, bn_state, batch):
@@ -72,10 +77,12 @@ def _jax_fused_apply(cfg):
     return jax.jit(apply)
 
 
-def jax_drn_eval(n_events: int, batch_size: int):
+def jax_drn_eval(n_events: int, batch_size: int, fused: bool = True):
     """The JAX package's DRN validation pass on synthetic ``n_events``
     (seed 42, validation split 0.2, ``batch_size``) from
-    ``ckpts_syn_drn/best.ckpt``, fused path in interpret mode:
+    ``ckpts_syn_drn/best.ckpt``, fused path in interpret mode (``fused=
+    False``: its CPU default, the composed path, the source of
+    ``chip_smoke.GOLDEN_DRN_COMPOSED_MET`` and ``_GRAPHS`` at (2000, 8)):
     ``(loss, met, graphs)`` with the loss the mean of the per-batch
     ``drn_loss_fn`` (as ``train.loop.evaluate`` takes it), ``met`` the
     cartesian MET estimate of every validation event ``[n_val, 2]`` in the
@@ -90,7 +97,7 @@ def jax_drn_eval(n_events: int, batch_size: int):
     from deepmetv2_tpu.train.loss import drn_loss_fn, drn_met_vector
 
     params, bn_state, cfg = _jax_drn()
-    apply = _jax_fused_apply(cfg)
+    apply = _jax_fused_apply(cfg, fused)
     ld = fetch_dataloader(events=synthetic_events(n_events, seed=42),
                           batch_size=batch_size, validation_split=0.2,
                           buckets=cfg.data.node_buckets)["test"]
@@ -220,7 +227,7 @@ def test_drn_polar_head():
     model = tdrn.DRN(DRNConfig(head="polar", output_scale=2.0)).eval()
     orig = tdrn.drn_apply
     try:
-        tdrn.drn_apply = lambda m, x, mask, diag=None: out
+        tdrn.drn_apply = lambda m, x, mask, diag=None, *forces: out
         batch = type("B", (), dict(x_cont=torch.zeros(3, 1, 8),
                                    x_cat=torch.zeros(3, 1, 3),
                                    mask=torch.ones(3, 1, dtype=torch.bool)))

@@ -206,9 +206,16 @@ def test_plain_d2_is_symmetric_and_sequential():
 
 
 def test_unsupported_shape_raises():
-    h = torch.zeros((1, 100, 8))
-    with pytest.raises(NotImplementedError, match="composed path"):
-        tdg.build_dyn_graph(h, torch.ones((1, 100), dtype=torch.bool), k=4)
+    """A shape the fused build does not take (N=100, not a multiple of 128)
+    no longer raises: it builds by the composed path, as the JAX package's
+    composed build does (tests/test_torch_drn_composed.py holds the rest)."""
+    h, mask = _gaussian(1, 100, 8, seed=12)
+    g = tdg.build_dyn_graph(torch.as_tensor(h), torch.as_tensor(mask), k=4)
+    j = jdg.build_dyn_graph(jnp.asarray(h), jnp.asarray(mask), k=4,
+                            force="composed")
+    assert g.t is None and g.rel is None
+    np.testing.assert_array_equal(g.nbr.idx.numpy(), np.asarray(j.nbr.idx))
+    np.testing.assert_array_equal(g.nbr.mask.numpy(), np.asarray(j.nbr.mask))
 
 
 def _mask(kind, B, N, rng):

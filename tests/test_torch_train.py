@@ -11,7 +11,8 @@ O(100) by about 1e-6 relative and a parameter by a few ulps of its step;
 a wrong gradient, moment or bias correction moves them by 1e-3 or more.
 
 ``python -c "from tests.test_torch_train import jax_resume_losses;
-print(jax_resume_losses(10))"`` recomputes ``chip_smoke.GOLDEN_TRAIN_LOSSES``.
+print(jax_resume_losses(10))"`` recomputes ``chip_smoke.GOLDEN_TRAIN_LOSSES``,
+``jax_nl_resume_losses(10)`` ``chip_smoke.GOLDEN_NL_TRAIN_LOSSES``.
 """
 
 import dataclasses
@@ -112,6 +113,22 @@ def jax_resume_losses(n_steps: int):
     batches = _cell_batches(events, 8, JDataConfig().node_buckets, n_steps,
                             jl)
     jcfg, _ = _configs(192, 8)
+    template = init_train_state(*j_init(jax.random.PRNGKey(0)), jcfg)
+    state, _ = jck.load_checkpoint(CKPT, template=template)
+    return _jax_steps(state, jcfg, batches)[1]
+
+
+def jax_nl_resume_losses(n_steps: int):
+    """The JAX package's per-step train losses in neighbor_list mode (the
+    radius graph capped at 256, self-loops, no phi wrap) from
+    ``ckpts_syn/best.ckpt`` on the first ``n_steps`` train batches of
+    synthetic 2000 (seed 42, batch 8), unsorted as its train CLI leaves
+    them in this mode: the source of
+    ``chip_smoke.GOLDEN_NL_TRAIN_LOSSES``."""
+    events = synthetic_events(2000, seed=42)
+    ld = jl.fetch_dataloader(events=events, batch_size=8)["train"]
+    batches = list(itertools.islice(iter(ld), n_steps))
+    jcfg = JConfig(data=JDataConfig(batch_size=8))
     template = init_train_state(*j_init(jax.random.PRNGKey(0)), jcfg)
     state, _ = jck.load_checkpoint(CKPT, template=template)
     return _jax_steps(state, jcfg, batches)[1]
@@ -250,9 +267,7 @@ def test_u_perp_par_loss_matches_jax(small):
                                    ["--model", "drn", "--ring_knn"],
                                    ["--model", "drn", "--compute_dtype",
                                     "bfloat16"],
-                                   ["--compute_dtype", "bfloat16"],
-                                   ["--from_torch", "x.pth.tar"],
-                                   ["--graph_mode", "neighbor_list"]])
+                                   ["--compute_dtype", "bfloat16"]])
 def test_train_cli_unported_flags_exit_nonzero(flags, tmp_path):
     from deepmetv2_tpu_torch.cli import train as train_cli
 
