@@ -53,6 +53,19 @@ Phases, each printing one line:
      from ckpts_syn/best.ckpt as chains of 8 and 2 held to
      GOLDEN_NL_TRAIN_LOSSES; nl_train, the train CLI for 1 epoch (its
      "feed:" line), its best.ckpt re-evaluated within REEVAL_RTOL;
+  8c. bf16 compute (ckpts_syn_bf16, ModelConfig.compute_dtype bfloat16):
+     kernel_bf16, the bf16 instantiations of the window forward and
+     backward against their plain versions on bf16 tensors, bitwise on
+     every row, at the evaluation and training shapes, H in {8, 33, 64,
+     128}, padded blocks and an all-padded event, lattice values with
+     ties, with their times and bounds; bf16_evaluate, the evaluate CLI on
+     synthetic 2000 within BF16_LOSS_RTOL of GOLDEN_BF16_LOSS with 20 bf16
+     launches and no f32 window launch; bf16_train_resume, 10 chained
+     steps from ckpts_syn_bf16/best.ckpt each within BF16_TRAIN_RTOL of
+     GOLDEN_BF16_TRAIN_LOSSES; bf16_train, the train CLI with
+     --compute_dtype bfloat16 for 1 epoch (its "feed:" line, exact bf16
+     launch counts with replays), its best.ckpt re-evaluated within
+     REEVAL_RTOL;
   9. kernel_knn: the DRN's graph kernels knn_kth and knn_extract against
      their plain versions, bitwise (t, sq, idx, d2v, rel), on (a) the
      DRN's own round-1 features of an evaluation batch (B=40, N=2048,
@@ -75,9 +88,9 @@ Phases, each printing one line:
      may be off; the loss printed beside DRN_LOSS_FIRST_DESIGN;
  12. predict_drn: the predict CLI with --model drn over the 2000 events;
  13. profile: one evaluation step's and one train step's device time by
-     kernel (torch.profiler), the same in neighbor_list mode with the
-     radius build, the gather and its backward timed alone, and one DRN
-     evaluation step's;
+     kernel (torch.profiler), in f32 and in bf16, the same in neighbor_list
+     mode with the radius build, the gather and its backward timed alone,
+     and one DRN evaluation step's;
  14. kernel_edge_mlp_bwd: the DRN's edge-MLP backward against its plain
      version evaluated in f64, for add, mean and max on (a) the DRN's
      round-1 features of a train batch (B=16, N=2048) with the cotangents
@@ -156,6 +169,28 @@ GOLDEN_NL_TRAIN_LOSSES = (
     0.6025006175041199, 0.8353309631347656, 0.8708376884460449,
     0.635197103023529, 0.5926329493522644, 1.1002843379974365,
     0.6679155826568604)
+# bf16 compute (ckpts_syn_bf16: ModelConfig.compute_dtype 'bfloat16'), from
+# the JAX package on the CPU forced onto its Pallas path in interpret mode
+# (its CPU default ignores compute_dtype):
+# tests/test_torch_bf16.py:jax_bf16_eval_loss(), cli.evaluate --synthetic
+# 2000 --restore_file best on a copy of ckpts_syn_bf16 (400 validation
+# events at batch 40); the port's CPU run gives 1.0300490856170654 (1.2e-7
+# apart), so the gate is LOSS_RTOL's.  The same run on a TPU recorded
+# 1.0301765203475952 (metrics_val_best.json): printed, not a gate.
+GOLDEN_BF16_LOSS = 1.030049204826355
+JAX_TPU_BF16_LOSS = 1.0301765203475952
+BF16_LOSS_RTOL = 1e-4
+# tests/test_torch_bf16.py:jax_bf16_resume_losses(10): make_train_step from
+# ckpts_syn_bf16/best.ckpt on the first 10 cell-sorted train batches of
+# synthetic 2000 (seed 42, batch 8, halo 192), on the same forced path.  The
+# port's CPU steps (port_bf16_resume_losses(10)) are within 3.0e-5 of them
+# (step 9; the others within 3.8e-6): the gate is ten times that.
+GOLDEN_BF16_TRAIN_LOSSES = (
+    1.4477107524871826, 0.5382652282714844, 1.4119887351989746,
+    0.5942192077636719, 0.8778863549232483, 0.9048249125480652,
+    0.6520813703536987, 0.6070807576179504, 1.1554502248764038,
+    0.6632782220840454)
+BF16_TRAIN_RTOL = 3e-4
 GRAD_RTOL, GRAD_ATOL = 1e-5, 2e-6   # atol times the largest |gradient|
 R = 0.4
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
@@ -315,17 +350,24 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def _bits(a):
+    """``a``'s bits as integers (16-bit for bfloat16, else 32-bit), with
+    -0.0 made +0.0 (adding +0.0 does), so only the sign of a zero is
+    forgiven."""
+    import torch
+
+    return (a + 0.0).view(torch.int16 if a.dtype == torch.bfloat16
+                          else torch.int32)
+
+
 def bitwise_equal(a, b) -> bool:
     import torch
 
-    # +0.0 turns -0.0 into +0.0, so only the sign of a zero is forgiven
-    return torch.equal((a + 0.0).view(torch.int32), (b + 0.0).view(torch.int32))
+    return torch.equal(_bits(a), _bits(b))
 
 
 def n_differ(a, b) -> int:
-    import torch
-
-    return int(((a + 0.0).view(torch.int32) != (b + 0.0).view(torch.int32)).sum())
+    return int((_bits(a) != _bits(b)).sum())
 
 
 def window_work(pos, mask, halo: int, r2: float):
@@ -356,6 +398,17 @@ def bound(nbytes: int, ops: int):
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             t_bytes, t_ops)
+
+
+def window_bytes_bf16(pos, H: int, reads: int) -> int:
+    """``window_bytes`` for the bf16 kernels: ``reads`` [B, N, H] bf16
+    inputs at the real rows, the whole bf16 output, and pos (8 bytes) at
+    the real rows."""
+    from deepmetv2_tpu_torch.ops.window import padded_rows
+
+    B, N, _ = pos.shape
+    real = int((~padded_rows(pos)).sum())
+    return 2 * (reads * H * real + B * N * H) + 8 * real
 
 
 def window_bytes(pos, H: int, reads: int) -> int:
@@ -634,7 +687,8 @@ def profile_phase(device, ck: str) -> None:
     """Where one evaluation step's (40 events, N=2048, halo 128, eta sort)
     and one train step's (8 events, N=2048, halo 192, cell order) device
     time goes: step time from CUDA events, device time by kernel from
-    torch.profiler."""
+    torch.profiler; the model of ``ck``'s config.json (its compute_dtype
+    printed)."""
     import dataclasses
     import itertools
 
@@ -662,8 +716,9 @@ def profile_phase(device, ck: str) -> None:
     eval_step = make_eval_step(ecfg)
     step_ms = cuda_ms(lambda: eval_step(model, batch), 20)
     dev_ms, n_k, top = step_profile(lambda: eval_step(model, batch))
-    say("profile", step="eval", batch=[batch.batch_size, batch.max_nodes],
-        step_ms=step_ms, device_ms=dev_ms, device_busy_share=dev_ms / step_ms,
+    dtype = cfg.model.compute_dtype
+    say("profile", step="eval", compute_dtype=dtype,
+        batch=[batch.batch_size, batch.max_nodes], step_ms=step_ms, device_ms=dev_ms, device_busy_share=dev_ms / step_ms,
         device_idle_share=1 - dev_ms / step_ms, kernels_per_step=n_k, top=top)
 
     ld = fetch_dataloader(events=events, batch_size=TRAIN_B,
@@ -672,8 +727,8 @@ def profile_phase(device, ck: str) -> None:
     train_step = make_train_step(tcfg)
     step_ms = cuda_ms(lambda: train_step(model, opt, batch), 20)
     dev_ms, n_k, top = step_profile(lambda: train_step(model, opt, batch))
-    say("profile", step="train", batch=[batch.batch_size, batch.max_nodes],
-        step_ms=step_ms, device_ms=dev_ms, device_busy_share=dev_ms / step_ms,
+    say("profile", step="train", compute_dtype=dtype,
+        batch=[batch.batch_size, batch.max_nodes], step_ms=step_ms, device_ms=dev_ms, device_busy_share=dev_ms / step_ms,
         device_idle_share=1 - dev_ms / step_ms, kernels_per_step=n_k, top=top)
 
 
@@ -2500,6 +2555,276 @@ def nl_profile(device) -> None:
         del g, ct, c, nbr
 
 
+BF16_KERNELS = ("window_max_bf16", "window_max_bwd_bf16")
+
+
+def window_counts(zero: bool = False) -> dict:
+    """The four window kernels' launch counts (f32 and bf16 forward and
+    backward), set to 0 first with ``zero``."""
+    from deepmetv2_tpu_torch.ops.cuda import edgeconv_window as ew
+
+    fns = [ew.window_max, ew.window_max_bwd, ew.window_max_bf16,
+           ew.window_max_bwd_bf16]
+    if zero:
+        for fn in fns:
+            fn.launches = 0
+    return {fn.__name__: fn.launches for fn in fns}
+
+
+def check_window_counts(what: str, want: dict) -> None:
+    """Fail unless the window kernels' counts are ``want`` (others 0)."""
+    got = window_counts()
+    want = {k: want.get(k, 0) for k in got}
+    if got != want:
+        fail(f"{what}: window kernel launches {got}, want {want}")
+
+
+def kernel_bf16_phase(device):
+    """The bf16 instantiations of both window kernels against their plain
+    versions on bf16 tensors, bitwise on every row (padded rows -inf / 0):
+    (e) the evaluation shape, (t) the training shape (cell order, halo
+    192), (h8 ... h128) H in {8, 33, 64, 128} on the training batch, (p)
+    the evaluation batch with two blocks of 32 padded rows inside an event
+    and an all-padded event, (l) lattice values (ties, ±0.0) on the
+    training batch; with the times and bounds at both shapes.  Returns the
+    forward's and the backward's kernel-line numbers."""
+    import numpy as np
+    import torch
+    from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import (
+        window_max, window_max_bwd)
+    from deepmetv2_tpu_torch.ops.window import (PAD_POS, padded_rows,
+                                                window_max_bwd_torch,
+                                                window_max_torch)
+    from deepmetv2_tpu_torch.probes.window_breakdown import probe_inputs
+
+    rng = np.random.default_rng(2)
+    r2 = R ** 2
+    inputs = probe_inputs(device)
+    c_e, pos_e, halo_e = inputs["eval"]
+    c_t, pos_t, _ = inputs["train"]
+
+    def bf16(shape, lattice=False):
+        v = rng.normal(size=shape)
+        if lattice:
+            v = np.round(v * 4) / 4 * np.where(rng.random(shape) < 0.5, 1, -1)
+        return torch.as_tensor(v.astype(np.float32),
+                               device=device).to(torch.bfloat16)
+
+    pos_p = pos_e.clone()
+    pos_p[0, 64:128] = PAD_POS
+    pos_p[1] = PAD_POS
+    cases = {"e": (c_e.to(torch.bfloat16), pos_e, halo_e),
+             "t": (c_t.to(torch.bfloat16), pos_t, TRAIN_HALO),
+             "p": (c_e.to(torch.bfloat16), pos_p, halo_e),
+             "l": (bf16(tuple(c_t.shape), True), pos_t, TRAIN_HALO)}
+    for H in (8, 33, 64, 128):
+        cases[f"h{H}"] = (bf16((TRAIN_B, TRAIN_N, H)), pos_t, TRAIN_HALO)
+    window_counts(zero=True)
+    ties = {}
+    for name, (c, pos, halo) in cases.items():
+        real = ~padded_rows(pos)
+        m = window_max(c, pos, r2, halo)
+        mt = window_max_torch(c, pos, real, r2, halo)
+        g = bf16(tuple(c.shape), name == "l")
+        dc = window_max_bwd(c, pos, m, g, r2, halo)
+        dt = window_max_bwd_torch(c, pos, m, g, r2, halo)
+        torch.cuda.synchronize()
+        if m.dtype != torch.bfloat16 or dc.dtype != torch.bfloat16:
+            fail(f"bf16 case {name}: outputs {m.dtype}, {dc.dtype}")
+        if not bitwise_equal(m, mt):
+            fail(f"window_max_fwd_bf16 case {name}: {n_differ(m, mt)} "
+                 "entries differ from the plain version")
+        if not bitwise_equal(dc, dt):
+            fail(f"window_max_bwd_bf16 case {name}: {n_differ(dc, dt)} "
+                 "entries differ from the plain version")
+        if bool((m[~real].float() != float("-inf")).any()) or bool(
+                (dc[~real].float() != 0).any()):
+            fail(f"bf16 case {name}: a padded row is not -inf / 0")
+        ones = window_max_bwd(c, pos, m, torch.ones_like(m), r2, halo)
+        ties[name] = int(ones.double().sum().item()
+                         - torch.isfinite(m.float()).sum().item())
+    launches = window_counts()
+    if launches != {"window_max": 0, "window_max_bwd": 0,
+                    "window_max_bf16": len(cases),
+                    "window_max_bwd_bf16": 2 * len(cases)}:
+        fail(f"bf16 cases launched {launches}")
+    if ties["l"] <= 0:
+        fail("bf16 case l has no tied maxima: the tie rule was not exercised")
+
+    c, pos, halo = cases["e"]
+    real = ~padded_rows(pos)
+    H = c.shape[-1]
+    fwd_ms = cuda_ms(lambda: window_max(c, pos, r2, halo), 50)
+    fwd_plain = cuda_ms(lambda: window_max_torch(c, pos, real, r2, halo), 5)
+    pairs, adj = window_work(pos, real, halo, r2)
+    fwd_bound = bound(window_bytes_bf16(pos, H, 1), 6 * pairs + H * adj)
+
+    c, pos, halo = cases["t"]
+    real = ~padded_rows(pos)
+    m = window_max(c, pos, r2, halo)
+    g = bf16(tuple(c.shape)) * real[..., None]
+    t_fwd_ms = cuda_ms(lambda: window_max(c, pos, r2, halo), 50)
+    bwd_ms = cuda_ms(lambda: window_max_bwd(c, pos, m, g, r2, halo), 50)
+    bwd_plain = cuda_ms(lambda: window_max_bwd_torch(c, pos, m, g, r2, halo),
+                        3)
+    t_pairs, t_adj = window_work(pos, real, halo, r2)
+    t_fwd_bound = bound(window_bytes_bf16(pos, H, 1), 6 * t_pairs + H * t_adj)
+    bwd_bound = bound(window_bytes_bf16(pos, H, 3),
+                      6 * t_pairs + 2 * H * t_adj)
+    # each kernel's own device time per launch (torch.profiler), f32 and
+    # bf16 on the same inputs: the wrappers' ms above include the host
+    m32, g32 = window_max(c_t, pos, r2, halo), g.float()
+    calls = {"fwd_eval": (lambda: window_max(c_e, pos_e, r2, halo_e),
+                          lambda: window_max(cases["e"][0], pos_e, r2,
+                                             halo_e)),
+             "fwd_train": (lambda: window_max(c_t, pos, r2, halo),
+                           lambda: window_max(c, pos, r2, halo)),
+             "bwd_train": (lambda: window_max_bwd(c_t, pos, m32, g32, r2,
+                                                  halo),
+                           lambda: window_max_bwd(c, pos, m, g, r2, halo))}
+    kernel_ms = {k: {"float32": step_profile(f32, 20, cpu=False)[0],
+                     "bfloat16": step_profile(bf, 20, cpu=False)[0]}
+                 for k, (f32, bf) in calls.items()}
+    say("kernel_bf16", cases=",".join(cases) + " bitwise equal",
+        extra_tied_sources=ties, eval_shape=list(cases["e"][0].shape),
+        eval_halo=halo_e, fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain,
+        fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+        train_shape=list(c.shape), train_halo=TRAIN_HALO,
+        train_fwd_ms=t_fwd_ms, train_fwd_bound_ms=t_fwd_bound[0],
+        bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain, bwd_bound_ms=bwd_bound[0],
+        bwd_bound_by=bwd_bound[1], kernel_ms=kernel_ms, card=CARD)
+    return ({"max_abs_err": 0.0, "ms": fwd_ms, "plain_ms": fwd_plain,
+             "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
+            {"max_abs_err": 0.0, "ms": bwd_ms, "plain_ms": bwd_plain,
+             "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]})
+
+
+def bf16_evaluate_phase(work: str) -> int:
+    """The evaluate CLI on synthetic 2000 from a copy of ckpts_syn_bf16
+    (compute_dtype bfloat16): the loss within BF16_LOSS_RTOL of
+    GOLDEN_BF16_LOSS, 20 launches of the bf16 forward and no f32 window
+    launch; the distance to the TPU's recorded loss printed.  Returns the
+    bf16 forward's launches."""
+    from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
+
+    ck = ckpt_copy(work, "bf16", "ckpts_syn_bf16")
+    window_counts(zero=True)
+    metrics, sec, peak = peak_run(lambda: evaluate_cli.run(
+        ["--synthetic", "2000", "--ckpts", ck, "--restore_file", "best"]))
+    loss = metrics["loss"]
+    rel = abs(loss - GOLDEN_BF16_LOSS) / GOLDEN_BF16_LOSS
+    say("bf16_evaluate", loss=loss, golden=GOLDEN_BF16_LOSS, rel_err=rel,
+        gate=BF16_LOSS_RTOL, jax_tpu_recorded=JAX_TPU_BF16_LOSS,
+        rel_to_tpu_recorded=abs(loss - JAX_TPU_BF16_LOSS) / JAX_TPU_BF16_LOSS,
+        launches=window_counts(), seconds=sec, peak_mb=peak)
+    if not rel <= BF16_LOSS_RTOL:
+        fail(f"bf16 validation loss {loss} is not within {BF16_LOSS_RTOL} "
+             f"of {GOLDEN_BF16_LOSS}")
+    check_window_counts("bf16 evaluate", {"window_max_bf16": 2 * 10})
+    return 2 * 10
+
+
+def bf16_train_resume_phase(device) -> None:
+    """10 train steps from ckpts_syn_bf16/best.ckpt in bf16 through the
+    chained runner as chains of 8 and 2, each loss within BF16_TRAIN_RTOL
+    of GOLDEN_BF16_TRAIN_LOSSES; 20 launches of each bf16 kernel, none of
+    the f32 ones."""
+    import dataclasses
+    import itertools
+
+    from deepmetv2_tpu_torch.cli.common import load_run_config
+    from deepmetv2_tpu_torch.data import (fetch_dataloader, synthetic_events,
+                                          to_device)
+    from deepmetv2_tpu_torch.models.graph_met import GraphMET
+    from deepmetv2_tpu_torch.train.chain import (make_chained_train_step,
+                                                 stack_batches)
+    from deepmetv2_tpu_torch.train.checkpoint import restore_checkpoint
+    from deepmetv2_tpu_torch.train.step import make_optimizer
+
+    ck = os.path.join(HERE, "ckpts_syn_bf16")
+    cfg = load_run_config(ck)
+    cfg = dataclasses.replace(cfg, graph=dataclasses.replace(
+        cfg.graph, mode="window", window_halo=TRAIN_HALO, presorted=True))
+    model = GraphMET(cfg.model, device=device)
+    opt = make_optimizer(cfg, model)
+    payload = restore_checkpoint(os.path.join(ck, "best.ckpt"), model, opt)
+    ld = fetch_dataloader(events=synthetic_events(2000, seed=42),
+                          batch_size=TRAIN_B, presort_eta=True,
+                          presort_mode="cell")["train"]
+    hosts = list(itertools.islice(iter(ld), len(GOLDEN_BF16_TRAIN_LOSSES)))
+    runner = make_chained_train_step(cfg)
+    window_counts(zero=True)
+
+    def run():
+        return [v for chain in (hosts[:8], hosts[8:]) for v in runner(
+            model, opt, to_device(stack_batches(chain), device)).tolist()]
+
+    losses, sec, peak = peak_run(run)
+    rel = [abs(a - b) / abs(b)
+           for a, b in zip(losses, GOLDEN_BF16_TRAIN_LOSSES)]
+    say("bf16_train_resume", compute_dtype=cfg.model.compute_dtype,
+        epoch=payload["epoch"], chains=[8, 2], losses=losses,
+        golden=GOLDEN_BF16_TRAIN_LOSSES, max_rel_err=max(rel),
+        gate=BF16_TRAIN_RTOL, launches=window_counts(), seconds=sec,
+        peak_mb=peak)
+    if cfg.model.compute_dtype != "bfloat16" or not max(rel) <= \
+            BF16_TRAIN_RTOL:
+        fail(f"bf16 resumed train losses are not within {BF16_TRAIN_RTOL} "
+             f"of the JAX package's: {losses}")
+    check_window_counts("bf16 train resume", {"window_max_bf16": 20,
+                                              "window_max_bwd_bf16": 20})
+
+
+def bf16_train_phase(work: str):
+    """The train CLI with --compute_dtype bfloat16 for 1 epoch on synthetic
+    2000, chained and resident by the config (its "feed:" line: the steps
+    replayed as CUDA graphs), the exact bf16 launch counts with replays and
+    no f32 window launch, the dtype in its config.json, and its best.ckpt
+    re-evaluated by the evaluate CLI within REEVAL_RTOL.  Returns (forward,
+    backward) launches."""
+    import torch
+    from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
+    from deepmetv2_tpu_torch.cli import train as train_cli
+
+    ck = os.path.join(work, "bf16_train")
+    window_counts(zero=True)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, sec, peak = peak_run(lambda: train_cli.main(
+            ["--synthetic", "2000", "--batch_size", str(TRAIN_B), "--ckpts",
+             ck, "--epochs", "1", "--compute_dtype", "bfloat16"]))
+    launches = window_counts()
+    text = out.getvalue()
+    with open(os.path.join(ck, "metrics_val_best.json")) as f:
+        best = json.load(f)["loss"]
+    with open(os.path.join(ck, "config.json")) as f:
+        dtype = json.load(f)["model"]["compute_dtype"]
+    ev = ckpt_copy(work, "bf16_train_eval", ck)
+    got = evaluate_cli.run(["--synthetic", "2000", "--ckpts", ev,
+                            "--batch_size", str(TRAIN_B)])["loss"]
+    torch.cuda.synchronize()
+    rel = abs(got - best) / abs(best)
+    say("bf16_train", seconds=sec, peak_mb=peak,
+        epoch_seconds=epoch_seconds(text), compute_dtype=dtype,
+        launches=launches, metrics_val_best=best, evaluate_cli=got,
+        rel_err=rel, log=[ln for ln in text.splitlines() if ln.startswith(
+            ("graph mode", "feed:", "Training epoch", "- Eval"))])
+    if rc != 0:
+        fail(f"bf16 train CLI exited {rc}")
+    check_feed_line("bf16 train CLI", text)
+    if dtype != "bfloat16":
+        fail(f"bf16 train CLI recorded compute_dtype {dtype!r}")
+    steps, evals, convs = 200, 50, 2
+    want = {"window_max_bf16": (steps + evals) * convs,
+            "window_max_bwd_bf16": steps * convs}
+    if launches != dict({"window_max": 0, "window_max_bwd": 0}, **want):
+        fail(f"bf16 train CLI: window launches {launches}, want {want}")
+    if not rel <= REEVAL_RTOL:
+        fail(f"evaluate CLI gives {got} on the bf16 train CLI's best.ckpt, "
+             f"not within {REEVAL_RTOL} of {best}")
+    return want["window_max_bf16"], want["window_max_bwd_bf16"]
+
+
 def main() -> int:
     t_run = time.perf_counter()
     import torch
@@ -2610,6 +2935,13 @@ def main() -> int:
     nl_train_resume_phase(device)
     nl_train_phase(work)
 
+    # 8c. bf16 compute (ckpts_syn_bf16): both bf16 kernels against their
+    # plain versions, then evaluate, resumed chained steps and the train CLI
+    fwd_bf16, bwd_bf16 = kernel_bf16_phase(device)
+    bf16_eval_launches = bf16_evaluate_phase(work)
+    bf16_train_resume_phase(device)
+    bf16_train_fwd, bf16_train_bwd = bf16_train_phase(work)
+
     # 9-10. the DRN's kernels against their plain versions
     drn, drn_cfg = drn_model(device)
     drn_batch = to_device(next(iter(drn_val_loader(drn_cfg, DRN_B))), device)
@@ -2623,6 +2955,7 @@ def main() -> int:
 
     # 13. where one evaluation step's and one train step's time goes
     profile_phase(device, ck)
+    profile_phase(device, os.path.join(work, "bf16"))
     nl_profile(device)
     drn_profile(device, drn, drn_cfg)
 
@@ -2663,6 +2996,15 @@ def main() -> int:
         "source": src + "window_max.cu",
         "replaces": "deepmetv2_tpu/ops/pallas/edgeconv_window.py:143",
         "launches": train_bwd, "library_ms": None}, **bwd), dict({
+        "name": "window_max_fwd_bf16", "route": "cuda",
+        "source": src + "window_max.cu",
+        "replaces": "deepmetv2_tpu/ops/pallas/edgeconv_window.py:82",
+        "launches": bf16_eval_launches + bf16_train_fwd,
+        "library_ms": None}, **fwd_bf16), dict({
+        "name": "window_max_bwd_bf16", "route": "cuda",
+        "source": src + "window_max.cu",
+        "replaces": "deepmetv2_tpu/ops/pallas/edgeconv_window.py:143",
+        "launches": bf16_train_bwd, "library_ms": None}, **bwd_bf16), dict({
         "name": "knn_kth", "route": "cuda", "source": src + "knn_und.cu",
         "replaces": "deepmetv2_tpu/ops/pallas/knn_und.py:88",
         "launches": runs("knn_kth"), "library_ms": None}, **knn[0]), dict({

@@ -19,8 +19,10 @@ scheduler trains either on one device, through the config's feed (chains
 of ``chain_steps`` = 8 steps as CUDA graph replays, the epoch resident on
 the device; the line "feed: ..." names it), as the JAX CLI has no flag
 for it; ``--restore_file`` resumes from a checkpoint of either package,
-``--from_torch`` warm-starts GraphMET from a reference ``.pth.tar``.  The
-JAX flags of paths not ported yet are accepted and exit non-zero with "not
+``--from_torch`` warm-starts GraphMET from a reference ``.pth.tar``;
+``--compute_dtype bfloat16`` runs GraphMET's EdgeConvs in bf16 and is
+recorded in ``config.json``.  The JAX flags of paths not ported yet
+(``--mesh``, ``--ring_knn``) are accepted and exit non-zero with "not
 ported yet".
 """
 
@@ -86,9 +88,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "capped at the nearest 256 (reference train.py:48)")
     p.add_argument("--from_torch", default=None,
                    help="warm-start from a reference .pth.tar checkpoint")
-    # the JAX package's flags of paths that are not ported yet
     p.add_argument("--compute_dtype", choices=["float32", "bfloat16"],
-                   default=None)
+                   default=None,
+                   help="EdgeConv precision (ModelConfig.compute_dtype): "
+                        "bfloat16 runs the conv GEMMs on bf16 operands with "
+                        "float32 sums and the window max on bf16 values; "
+                        "positions and adjacency stay float32")
+    # the JAX package's flags of paths that are not ported yet
     p.add_argument("--mesh", default=None, metavar="DxN")
     p.add_argument("--ring_knn", action="store_true")
     return p
@@ -96,13 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def unported(args) -> list:
     """The flags given that select a path the port does not have yet."""
-    out = []
-    if args.compute_dtype not in (None, "float32"):
-        out.append(f"--compute_dtype {args.compute_dtype}")
-    for flag in ("mesh", "ring_knn"):
-        if getattr(args, flag):
-            out.append(f"--{flag}")
-    return out
+    return [f"--{flag}" for flag in ("mesh", "ring_knn")
+            if getattr(args, flag)]
 
 
 def drn_data_init(dataset, indices):
@@ -145,10 +146,13 @@ def main(argv=None) -> int:
              if v is not None}
     drn = {k: v for k, v in (("aggr", args.drn_aggr),
                              ("head", args.drn_head)) if v is not None}
+    # recorded for either family, as the JAX CLI does (its DRN never reads it)
+    dtype = {"compute_dtype": args.compute_dtype} if args.compute_dtype else {}
     cfg = dataclasses.replace(
         cfg, optim=dataclasses.replace(cfg.optim, **optim),
         train=dataclasses.replace(cfg.train, **train),
-        drn=dataclasses.replace(cfg.drn, **drn))
+        drn=dataclasses.replace(cfg.drn, **drn),
+        model=dataclasses.replace(cfg.model, **dtype))
     is_drn = args.model == "drn"
     if is_drn and cfg.drn.head == "polar":
         # the JAX CLI's warning (cli/train.py:181-189): on its 150-epoch

@@ -41,7 +41,9 @@ class ModelConfig:
     conv_depth: int = 2
     output_dim: int = 1
     pdgs: Tuple[int, ...] = (1, 2, 11, 13, 22, 130, 211)
-    compute_dtype: str = "float32"  # 'bfloat16' is not ported yet (A6)
+    # 'float32' or 'bfloat16': the EdgeConv's GEMMs and window max in bf16
+    # (ops/window.py:edgeconv_terms), everything else in float32
+    compute_dtype: str = "float32"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -68,6 +68,23 @@
 // (deepmetv2_tpu_torch/probes/window_revolver.py times it against
 // window_max_fwd).
 //
+// BFLOAT16 VALUES (window_max_fwd_bf16, window_max_bwd_bf16).  Replace the
+// same two Pallas kernels where they carry bf16 values
+// (window_edgeconv_linear_pallas(dtype=bfloat16), ModelConfig.compute_dtype):
+// c, m, g and dc are bf16 while pos and the predicate stay f32.  The forward
+// and the backward are templates on the value type T (float or
+// __nv_bfloat16), instantiated for both.  A bf16 value is compared and summed
+// as the float __bfloat162float gives, which is exact and injective, so a max
+// selects the same input and the tie test c == m holds for the same pairs as
+// in bf16; the forward writes the selected value back (__float2bfloat16_rn of
+// a bf16 value is that value), and the backward sums in f32 from 0 in
+// ascending query order and rounds once (__float2bfloat16_rn), as the plain
+// version (window_max_bwd_torch: float32 sums, one cast at the end) and the
+// TPU kernel's f32 accumulator do.  Staging: 16-byte cp.async copies when a
+// row is a whole number of 16 bytes (H % 8 == 0 in bf16) and the base is
+// aligned; else 4-byte cp.async in f32 and a plain copy in bf16 (cp.async has
+// no 2-byte size).  The bound is the f32 kernels' with half the value bytes.
+//
 // BACKWARD.  Replaces the Pallas TPU kernel _bwd_kernel of the same file
 // (reached through _window_max_bwd, the custom VJP of window_max).
 // Computes, for the forward's c and m, the gradient g of m, and pos:
@@ -100,6 +117,7 @@
 // add per adjacent pair and feature.  So the bound is bytes (times in
 // PERF.md).
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -117,6 +135,21 @@ constexpr float PAD_HALF = 5e8f;   // PAD_POS / 2: an eta >= it marks padding
 
 __device__ __forceinline__ bool is_padded(float eta) {
   return eta >= PAD_HALF;
+}
+
+// The values' type T (float or __nv_bfloat16) to float and back, through the
+// intrinsics only; both directions are exact for a value that T holds.
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
 // The adjacency predicate, rounded one IEEE operation at a time so that it
@@ -237,24 +270,37 @@ __device__ int plan_window(const float* pb, int lo, int hi,
   return *count;
 }
 
-// Issues (does not commit) the cp.async copies of `rows` rows of H floats
-// from src to dst: 16 bytes each when `vec` (H % 4 == 0, aligned), else 4.
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int rows, int H, bool vec) {
+// Issues (does not commit) the copies of `rows` rows of H values of T from
+// src to dst: cp.async of 16 bytes each when `vec` (vec16 below), else of one
+// value each for a 4-byte T; a 2-byte T has no cp.async size of its own, so
+// it is copied by plain loads and stores (visible after the caller's
+// barrier).
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int rows,
+                                           int H, bool vec) {
   if (vec) {
-    const int n4 = rows * H / 4;
-    for (int i = threadIdx.x; i < n4; i += WARPS * 32)
+    const int n16 = rows * H * static_cast<int>(sizeof(T)) / 16;
+    for (int i = threadIdx.x; i < n16; i += WARPS * 32)
       __pipeline_memcpy_async(reinterpret_cast<float4*>(dst) + i,
                               reinterpret_cast<const float4*>(src) + i,
                               sizeof(float4));
-  } else {
+  } else if constexpr (sizeof(T) == 4) {
     for (int i = threadIdx.x; i < rows * H; i += WARPS * 32)
-      __pipeline_memcpy_async(dst + i, src + i, sizeof(float));
+      __pipeline_memcpy_async(dst + i, src + i, sizeof(T));
+  } else {
+    for (int i = threadIdx.x; i < rows * H; i += WARPS * 32) dst[i] = src[i];
   }
 }
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// 16-byte staging: a row of H values of T is a whole number of 16 bytes
+// (so is every row offset) and the tensor's base is aligned.
+template <typename T>
+__device__ __forceinline__ bool vec16(int H, const T* base) {
+  return (H * sizeof(T)) % 16 == 0 && aligned16(base);
 }
 
 // Shared memory after the staged rows: the window's coordinates [wmax] x 2,
@@ -268,15 +314,15 @@ __host__ __device__ inline size_t plan_bytes(int wmax) {
          sizeof(float);
 }
 
-template <int NH>  // ceil(H / 32) features per lane
+template <typename T, int NH>  // value type; ceil(H / 32) features per lane
 __global__ void __launch_bounds__(WARPS * 32)
-window_max_fwd_kernel(const float* __restrict__ c,
+window_max_fwd_kernel(const T* __restrict__ c,
                       const float* __restrict__ pos,
-                      float* __restrict__ out, int N, int H, int halo,
+                      T* __restrict__ out, int N, int H, int halo,
                       float r2, int wmax) {
   extern __shared__ float4 smem4[];
-  float* c_s = reinterpret_cast<float*>(smem4);   // [2][CHUNK][H]
-  float* e_w = c_s + 2 * CHUNK * H;                // [wmax]
+  T* c_s = reinterpret_cast<T*>(smem4);            // [2][CHUNK][H]
+  float* e_w = reinterpret_cast<float*>(c_s + 2 * CHUNK * H);   // [wmax]
   float* p_w = e_w + wmax;                         // [wmax]
   int* keep = reinterpret_cast<int*>(p_w + wmax);  // [n_chunks(wmax)]
   int* list = keep + n_chunks(wmax);               // [n_chunks(wmax)]
@@ -287,16 +333,16 @@ window_max_fwd_kernel(const float* __restrict__ c,
   const int t0 = blockIdx.x * ROWS;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const float* cb = c + static_cast<size_t>(b) * N * H;
+  const T* cb = c + static_cast<size_t>(b) * N * H;
   const float* pb = pos + static_cast<size_t>(b) * N * 2;
-  float* ob = out + static_cast<size_t>(b) * N * H;
+  T* ob = out + static_cast<size_t>(b) * N * H;
 
   float e, p;
   const unsigned real = block_rows(pb, t0, N, e, p);
   if (real == 0u) {   // every query row padded: -inf rows, nothing to visit
     const int n = min(ROWS, N - t0) * H;
     for (int k = threadIdx.x; k < n; k += WARPS * 32)
-      ob[static_cast<size_t>(t0) * H + k] = -CUDART_INF_F;
+      ob[static_cast<size_t>(t0) * H + k] = from_float<T>(-CUDART_INF_F);
     return;
   }
   const Box rows_box = warp_box((real >> lane) & 1u, e, p);
@@ -314,7 +360,7 @@ window_max_fwd_kernel(const float* __restrict__ c,
   const int hi = min(N, t0 + ROWS + halo);
   const int nk =
       plan_window(pb, lo, hi, rows_box, r2, e_w, p_w, keep, list, count);
-  const bool vec = (H & 3) == 0 && aligned16(c);
+  const bool vec = vec16(H, c);
   auto stage = [&](int i) {   // kept chunk i into buffer i & 1
     const int s0 = lo + list[i] * CHUNK;
     stage_rows(c_s + (i & 1) * CHUNK * H, cb + static_cast<size_t>(s0) * H,
@@ -331,7 +377,7 @@ window_max_fwd_kernel(const float* __restrict__ c,
       __pipeline_wait_prior(0);
     }
     __syncthreads();             // ... and every thread's part
-    const float* cs = c_s + (i & 1) * CHUNK * H;
+    const T* cs = c_s + (i & 1) * CHUNK * H;
     const int w0 = list[i] * CHUNK;   // the chunk's first row in the window
     const int rows = min(CHUNK, hi - lo - w0);
     const int s = lo + w0 + lane;     // this lane's source row
@@ -350,12 +396,14 @@ window_max_fwd_kernel(const float* __restrict__ c,
         bits &= bits - 1;
         const int k2 = bits ? __ffs(bits) - 1 : k;
         bits &= bits - 1;
-        const float* row = cs + k * H;
-        const float* row2 = cs + k2 * H;
+        const T* row = cs + k * H;
+        const T* row2 = cs + k2 * H;
 #pragma unroll
         for (int t = 0; t < NH; ++t) {
           const int h = lane + 32 * t;
-          if (h < H) acc[j][t] = fmaxf(acc[j][t], fmaxf(row[h], row2[h]));
+          if (h < H)
+            acc[j][t] = fmaxf(acc[j][t],
+                              fmaxf(to_float(row[h]), to_float(row2[h])));
         }
       }
     }
@@ -366,27 +414,27 @@ window_max_fwd_kernel(const float* __restrict__ c,
   for (int j = 0; j < QPW; ++j) {
     const int q = t0 + warp * QPW + j;
     if (q >= N) break;
-    float* o = ob + static_cast<size_t>(q) * H;
+    T* o = ob + static_cast<size_t>(q) * H;
 #pragma unroll
     for (int t = 0; t < NH; ++t) {
       const int h = lane + 32 * t;
-      if (h < H) o[h] = acc[j][t];
+      if (h < H) o[h] = from_float<T>(acc[j][t]);
     }
   }
 }
 
-template <int NH>  // ceil(H / 32) features per lane
+template <typename T, int NH>  // value type; ceil(H / 32) features per lane
 __global__ void __launch_bounds__(WARPS * 32)
-window_max_bwd_kernel(const float* __restrict__ c,
+window_max_bwd_kernel(const T* __restrict__ c,
                       const float* __restrict__ pos,
-                      const float* __restrict__ m,
-                      const float* __restrict__ g,
-                      float* __restrict__ dc, int N, int H, int halo,
+                      const T* __restrict__ m,
+                      const T* __restrict__ g,
+                      T* __restrict__ dc, int N, int H, int halo,
                       float r2, int wmax) {
   extern __shared__ float4 smem4[];
-  float* m_s = reinterpret_cast<float*>(smem4);   // [2][CHUNK][H]
-  float* g_s = m_s + 2 * CHUNK * H;                // [2][CHUNK][H]
-  float* e_w = g_s + 2 * CHUNK * H;                // [wmax]
+  T* m_s = reinterpret_cast<T*>(smem4);            // [2][CHUNK][H]
+  T* g_s = m_s + 2 * CHUNK * H;                    // [2][CHUNK][H]
+  float* e_w = reinterpret_cast<float*>(g_s + 2 * CHUNK * H);   // [wmax]
   float* p_w = e_w + wmax;                         // [wmax]
   int* keep = reinterpret_cast<int*>(p_w + wmax);  // [n_chunks(wmax)]
   int* list = keep + n_chunks(wmax);               // [n_chunks(wmax)]
@@ -405,7 +453,7 @@ window_max_bwd_kernel(const float* __restrict__ c,
   if (real == 0u) {   // every source padded: zero rows, nothing to visit
     const int n = min(ROWS, N - t0) * H;
     for (int k = threadIdx.x; k < n; k += WARPS * 32)
-      dc[base + static_cast<size_t>(t0) * H + k] = 0.f;
+      dc[base + static_cast<size_t>(t0) * H + k] = from_float<T>(0.f);
     return;
   }
   const Box rows_box = warp_box((real >> lane) & 1u, e, p);
@@ -420,7 +468,8 @@ window_max_bwd_kernel(const float* __restrict__ c,
     for (int t = 0; t < NH; ++t) {
       const int h = lane + 32 * t;
       cv[j][t] = ((mine >> j) & 1u) && h < H
-                     ? c[base + static_cast<size_t>(s) * H + h] : 0.f;
+                     ? to_float(c[base + static_cast<size_t>(s) * H + h])
+                     : 0.f;
       acc[j][t] = 0.f;
     }
   }
@@ -429,7 +478,7 @@ window_max_bwd_kernel(const float* __restrict__ c,
   const int hi = min(N, t0 + ROWS + halo);
   const int nk =
       plan_window(pb, lo, hi, rows_box, r2, e_w, p_w, keep, list, count);
-  const bool vec = (H & 3) == 0 && aligned16(m) && aligned16(g);
+  const bool vec = vec16(H, m) && vec16(H, g);
   auto stage = [&](int i) {   // kept chunk i into buffer i & 1
     const int q0 = lo + list[i] * CHUNK;
     const int rows = min(CHUNK, hi - q0);
@@ -448,8 +497,8 @@ window_max_bwd_kernel(const float* __restrict__ c,
       __pipeline_wait_prior(0);
     }
     __syncthreads();             // ... and every thread's part
-    const float* ms = m_s + (i & 1) * CHUNK * H;
-    const float* gs = g_s + (i & 1) * CHUNK * H;
+    const T* ms = m_s + (i & 1) * CHUNK * H;
+    const T* gs = g_s + (i & 1) * CHUNK * H;
     const int w0 = list[i] * CHUNK;   // the chunk's first row in the window
     const int rows = min(CHUNK, hi - lo - w0);
     const int q = lo + w0 + lane;     // this lane's query row
@@ -472,12 +521,12 @@ window_max_bwd_kernel(const float* __restrict__ c,
         for (int t = 0; t < NH; ++t) {
           const int h = lane + 32 * t;
           if (h < H) {
-            const float mv = ms[k * H + h];
-            const float mv2 = k2 >= 0 ? ms[k2 * H + h] : 0.f;
+            const float mv = to_float(ms[k * H + h]);
+            const float mv2 = k2 >= 0 ? to_float(ms[k2 * H + h]) : 0.f;
             if (cv[j][t] == finite_or_inf(mv))
-              acc[j][t] += grad_of(mv, gs[k * H + h]);
+              acc[j][t] += grad_of(mv, to_float(gs[k * H + h]));
             if (k2 >= 0 && cv[j][t] == finite_or_inf(mv2))
-              acc[j][t] += grad_of(mv2, gs[k2 * H + h]);
+              acc[j][t] += grad_of(mv2, to_float(gs[k2 * H + h]));
           }
         }
       }
@@ -489,11 +538,11 @@ window_max_bwd_kernel(const float* __restrict__ c,
   for (int j = 0; j < SPW; ++j) {
     const int s = t0 + warp * SPW + j;
     if (s >= N) break;
-    float* o = dc + base + static_cast<size_t>(s) * H;
+    T* o = dc + base + static_cast<size_t>(s) * H;
 #pragma unroll
     for (int t = 0; t < NH; ++t) {
       const int h = lane + 32 * t;
-      if (h < H) o[h] = acc[j][t];
+      if (h < H) o[h] = from_float<T>(acc[j][t]);
     }
   }
 }
@@ -513,14 +562,31 @@ cudaError_t launch_with(Kernel kernel, dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
-template <int NH>
-cudaError_t launch(const float* c, const float* pos, float* out, int B, int N,
-                   int H, int halo, float r2, cudaStream_t stream) {
+template <typename T, int NH>
+cudaError_t launch(const T* c, const float* pos, T* out, int B, int N, int H,
+                   int halo, float r2, cudaStream_t stream) {
   const int wmax = std::min(N, ROWS + 2 * halo);
   const size_t smem =
-      2 * static_cast<size_t>(CHUNK) * H * sizeof(float) + plan_bytes(wmax);
-  return launch_with(window_max_fwd_kernel<NH>, dim3((N + ROWS - 1) / ROWS, B),
-                     smem, stream, c, pos, out, N, H, halo, r2, wmax);
+      2 * static_cast<size_t>(CHUNK) * H * sizeof(T) + plan_bytes(wmax);
+  return launch_with(window_max_fwd_kernel<T, NH>,
+                     dim3((N + ROWS - 1) / ROWS, B), smem, stream, c, pos, out,
+                     N, H, halo, r2, wmax);
+}
+
+// The forward for either value type; the C entry points' contract.
+template <typename T>
+int window_max_fwd_t(const T* c, const float* pos, T* out, int B, int N,
+                     int H, int halo, float r2, cudaStream_t stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (halo < 0) return static_cast<int>(cudaErrorInvalidValue);
+  halo = std::min(halo, N);
+  switch ((H + 31) / 32) {
+    case 1: return launch<T, 1>(c, pos, out, B, N, H, halo, r2, stream);
+    case 2: return launch<T, 2>(c, pos, out, B, N, H, halo, r2, stream);
+    case 3: return launch<T, 3>(c, pos, out, B, N, H, halo, r2, stream);
+    case 4: return launch<T, 4>(c, pos, out, B, N, H, halo, r2, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The pipelined probe's forward (see the file's notes): every chunk of the
@@ -635,16 +701,37 @@ cudaError_t launch_pipelined(const float* c, const float* pos, float* out,
                      out, N, H, halo, r2);
 }
 
-template <int NH>
-cudaError_t launch_bwd(const float* c, const float* pos, const float* m,
-                       const float* g, float* dc, int B, int N, int H,
-                       int halo, float r2, cudaStream_t stream) {
+template <typename T, int NH>
+cudaError_t launch_bwd(const T* c, const float* pos, const T* m, const T* g,
+                       T* dc, int B, int N, int H, int halo, float r2,
+                       cudaStream_t stream) {
   const int wmax = std::min(N, ROWS + 2 * halo);
   const size_t smem =
-      4 * static_cast<size_t>(CHUNK) * H * sizeof(float) + plan_bytes(wmax);
-  return launch_with(window_max_bwd_kernel<NH>,
+      4 * static_cast<size_t>(CHUNK) * H * sizeof(T) + plan_bytes(wmax);
+  return launch_with(window_max_bwd_kernel<T, NH>,
                      dim3((N + ROWS - 1) / ROWS, B), smem, stream, c, pos, m,
                      g, dc, N, H, halo, r2, wmax);
+}
+
+// The backward for either value type; the C entry points' contract.
+template <typename T>
+int window_max_bwd_t(const T* c, const float* pos, const T* m, const T* g,
+                     T* dc, int B, int N, int H, int halo, float r2,
+                     cudaStream_t stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (halo < 0) return static_cast<int>(cudaErrorInvalidValue);
+  halo = std::min(halo, N);
+  switch ((H + 31) / 32) {
+    case 1:
+      return launch_bwd<T, 1>(c, pos, m, g, dc, B, N, H, halo, r2, stream);
+    case 2:
+      return launch_bwd<T, 2>(c, pos, m, g, dc, B, N, H, halo, r2, stream);
+    case 3:
+      return launch_bwd<T, 3>(c, pos, m, g, dc, B, N, H, halo, r2, stream);
+    case 4:
+      return launch_bwd<T, 4>(c, pos, m, g, dc, B, N, H, halo, r2, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -656,16 +743,15 @@ cudaError_t launch_bwd(const float* c, const float* pos, const float* m,
 extern "C" int window_max_fwd(const float* c, const float* pos, float* out,
                               int B, int N, int H, int halo, float r2,
                               cudaStream_t stream) {
-  if (B <= 0 || N <= 0) return 0;
-  if (halo < 0) return static_cast<int>(cudaErrorInvalidValue);
-  halo = std::min(halo, N);
-  switch ((H + 31) / 32) {
-    case 1: return launch<1>(c, pos, out, B, N, H, halo, r2, stream);
-    case 2: return launch<2>(c, pos, out, B, N, H, halo, r2, stream);
-    case 3: return launch<3>(c, pos, out, B, N, H, halo, r2, stream);
-    case 4: return launch<4>(c, pos, out, B, N, H, halo, r2, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return window_max_fwd_t(c, pos, out, B, N, H, halo, r2, stream);
+}
+
+// C interface of the forward on bf16 values (c, out bf16; pos f32); the same
+// contract as window_max_fwd.
+extern "C" int window_max_fwd_bf16(const __nv_bfloat16* c, const float* pos,
+                                   __nv_bfloat16* out, int B, int N, int H,
+                                   int halo, float r2, cudaStream_t stream) {
+  return window_max_fwd_t(c, pos, out, B, N, H, halo, r2, stream);
 }
 
 // C interface of the pipelined forward; the same contract as window_max_fwd.
@@ -689,14 +775,15 @@ extern "C" int window_max_fwd_pipelined(const float* c, const float* pos,
 extern "C" int window_max_bwd(const float* c, const float* pos, const float* m,
                               const float* g, float* dc, int B, int N, int H,
                               int halo, float r2, cudaStream_t stream) {
-  if (B <= 0 || N <= 0) return 0;
-  if (halo < 0) return static_cast<int>(cudaErrorInvalidValue);
-  halo = std::min(halo, N);
-  switch ((H + 31) / 32) {
-    case 1: return launch_bwd<1>(c, pos, m, g, dc, B, N, H, halo, r2, stream);
-    case 2: return launch_bwd<2>(c, pos, m, g, dc, B, N, H, halo, r2, stream);
-    case 3: return launch_bwd<3>(c, pos, m, g, dc, B, N, H, halo, r2, stream);
-    case 4: return launch_bwd<4>(c, pos, m, g, dc, B, N, H, halo, r2, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return window_max_bwd_t(c, pos, m, g, dc, B, N, H, halo, r2, stream);
+}
+
+// C interface of the backward on bf16 values (c, m, g, dc bf16; pos f32);
+// the same contract as window_max_fwd.
+extern "C" int window_max_bwd_bf16(const __nv_bfloat16* c, const float* pos,
+                                   const __nv_bfloat16* m,
+                                   const __nv_bfloat16* g, __nv_bfloat16* dc,
+                                   int B, int N, int H, int halo, float r2,
+                                   cudaStream_t stream) {
+  return window_max_bwd_t(c, pos, m, g, dc, B, N, H, halo, r2, stream);
 }

@@ -5,7 +5,10 @@
 * embeddings of charge [3, H/4], |pdgId| [7, H/4], fromPV [8, H/4];
 * continuous encoder Linear(8→H/2)+ELU, categorical encoder
   Linear(3H/4→H/2)+ELU, joint encoder Linear(H→H)+ELU, masked BatchNorm;
-* ``conv_depth`` residual blocks ``emb += BN(EdgeConv_linear(emb))``;
+* ``conv_depth`` residual blocks ``emb += BN(EdgeConv_linear(emb))``,
+  with ``compute_dtype='bfloat16'`` the EdgeConv's GEMMs on bf16 operands
+  and its window max on bf16 values (ops/window.py:edgeconv_terms); the
+  parameters and everything else stay float32, as in the JAX package;
 * head Linear(H→H/2)+ELU+Linear(H/2→1), sigmoid → w ∈ (0, 1).
 
 Parameters keep the JAX package's names and ``[in, out]`` layout, so
@@ -58,10 +61,9 @@ class GraphMET(JaxLayout):
     def __init__(self, cfg: ModelConfig = ModelConfig(),
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r} is not ported yet "
-                "(ROADMAP A9); use float32")
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: float32 "
+                             "or bfloat16")
         self.cfg = cfg
         H = cfg.hidden_dim
         g, d = generator, device
@@ -86,8 +88,10 @@ class GraphMET(JaxLayout):
             torch.cat([emb_chrg, emb_pdg, emb_pv], dim=-1)))
         enc = elu(self.encode_all(torch.cat([emb_cat, emb_cont], dim=-1)))
         emb = self.bn_all(enc, batch.mask)
+        dtype = (torch.bfloat16 if self.cfg.compute_dtype == "bfloat16"
+                 else None)
         for conv in self.convs:
-            h = edgeconv(emb, graph, conv.edge.w, conv.edge.b, "max")
+            h = edgeconv(emb, graph, conv.edge.w, conv.edge.b, "max", dtype)
             emb = emb + conv.bn(h, batch.mask)  # residual
         return self.output(emb).squeeze(-1)
 

@@ -8,11 +8,15 @@ factors exactly: ``max_j (a_i + c_j) = a_i + max_j c_j``, the sum is
 Over a ``WindowGraph`` (window mode) 'max' goes through the ``WindowMax``
 autograd function (ops/cuda/edgeconv_window.py): the Hopper kernels for a
 CUDA tensor, their plain PyTorch versions for a CPU tensor, with the same
-tie rule in the gradient; the window 'sum' and 'mean' are not ported
-(ROADMAP A9).  Over a ``Neighborhood`` (neighbor_list mode) the conv is a
-gather and masked reduce of c in plain PyTorch on either device
-(``edgeconv_linear``), as the JAX package runs it in XLA; ``edgeconv_mlp``
-takes any edge MLP.  The sharded halo-exchange path is ROADMAP A8.
+tie rule in the gradient, on float32 values or, with ``dtype=bfloat16``
+(``ModelConfig.compute_dtype``), on bf16 ones.  The window 'sum' and
+'mean' run in plain PyTorch in float32 on either device
+(ops/window.py:window_edgeconv_linear), as the JAX package sends them to
+XLA.  Over a ``Neighborhood`` (neighbor_list mode) the conv is a gather
+and masked reduce of c in plain PyTorch on either device
+(``edgeconv_linear``), as the JAX package runs it in XLA, and ``dtype``
+is ignored, as there; ``edgeconv_mlp`` takes any edge MLP.  The sharded
+halo-exchange path is ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import (
     window_edgeconv_linear_cuda,
 )
 from deepmetv2_tpu_torch.ops.segment import gather_neighbors, neighbor_reduce
-from deepmetv2_tpu_torch.ops.window import WindowGraph
+from deepmetv2_tpu_torch.ops.window import (WindowGraph,
+                                            window_edgeconv_linear)
 
 
 def edgeconv(
@@ -35,20 +40,20 @@ def edgeconv(
     weight: torch.Tensor,
     bias: Optional[torch.Tensor],
     reduction: str = "max",
+    dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Linear-MLP EdgeConv over a ``Neighborhood`` (``edgeconv_linear``) or
-    a ``WindowGraph`` ('max' only)."""
+    a ``WindowGraph``; ``dtype`` is the window 'max' path's compute type
+    (None: float32)."""
     if isinstance(graph, Neighborhood):
         return edgeconv_linear(x, graph, weight, bias, reduction)
     if not isinstance(graph, WindowGraph):
         raise NotImplementedError(
             f"EdgeConv over {type(graph).__name__}: the port has it over a "
             "Neighborhood or a WindowGraph")
-    if reduction != "max":
-        raise NotImplementedError(
-            f"window reduction {reduction!r} is not ported yet (ROADMAP A9); "
-            "only 'max'")
-    return window_edgeconv_linear_cuda(x, graph, weight, bias)
+    if reduction == "max":
+        return window_edgeconv_linear_cuda(x, graph, weight, bias, dtype)
+    return window_edgeconv_linear(x, graph, weight, bias, reduction)
 
 
 def edgeconv_linear(

@@ -12,7 +12,11 @@ train.py:47).  This module is the CPU path and the oracle of the CUDA
 kernels (ops/cuda/edgeconv_window.py), forward and backward: both round
 the predicate the same way, one IEEE operation at a time, a max selects
 an input exactly, and the backward sums in the same order, so kernel and
-plain version agree bit for bit.
+plain version agree bit for bit.  The values may be float32 or bfloat16
+(``ModelConfig.compute_dtype``); the coordinates and the predicate stay
+float32, and the backward sums in float32 whatever the values' type.
+The window 'sum' and 'mean' (``window_sum_torch``) have no kernel, as the
+JAX package runs them in XLA.
 
 Padded rows.  The kernels take no mask: a row is padded when its eta is
 at least ``PAD_POS / 2`` (``padded_rows``; the wrapper puts padded rows at
@@ -85,20 +89,46 @@ def window_max_torch(
     without ``out=`` so that autograd can run through it (torch's maximum
     splits the gradient at a tie; ``window_max_bwd_torch`` is the
     backward with the kernel's tie rule)."""
-    B, N, H = c.shape
-    w = min(halo, N - 1)
     neg = torch.tensor(float("-inf"), dtype=c.dtype, device=c.device)
-    cp = F.pad(c, (0, 0, w, w), value=float("-inf"))
+    m = torch.full_like(c, float("-inf"))
+    for cs, adj in _window_sources(c, pos, mask, r2, halo, float("-inf")):
+        m = torch.maximum(m, torch.where(adj[..., None], cs, neg))
+    return m
+
+
+def _window_sources(c, pos, mask, r2: float, halo: int, fill: float):
+    """For each offset d = −halo..halo in turn: (c of the sources i + d,
+    [B, N, H], ``fill`` past either end; adj(i, i + d) ∧ mask[i] ∧
+    mask[i + d], [B, N])."""
+    N = c.shape[1]
+    w = min(halo, N - 1)
+    cp = F.pad(c, (0, 0, w, w), value=fill)
     ep = F.pad(pos[..., 0], (w, w))
     pp = F.pad(pos[..., 1], (w, w))
     mp = F.pad(mask, (w, w), value=False)
-    m = torch.full_like(c, float("-inf"))
     for d in range(-w, w + 1):          # sources i + d
         s = slice(w + d, w + d + N)
-        adj = (adjacent(pos[..., 0], pos[..., 1], ep[:, s], pp[:, s], r2)
-               & mask & mp[:, s])[..., None]
-        m = torch.maximum(m, torch.where(adj, cp[:, s], neg))
-    return m
+        yield cp[:, s], (adjacent(pos[..., 0], pos[..., 1], ep[:, s],
+                                  pp[:, s], r2) & mask & mp[:, s])
+
+
+def window_sum_torch(
+    c: torch.Tensor,       # [B, N, H]
+    pos: torch.Tensor,     # [B, N, 2]
+    mask: torch.Tensor,    # [B, N]
+    r2: float,
+    halo: int,
+):
+    """``(acc, deg)``: ``acc[b,i,:] = Σ c[b,w,:]`` over the sources w of
+    ``window_max_torch`` (0 where there is none), in ascending w, and
+    ``deg[b,i]`` their number (int32).  Differentiable by autograd."""
+    acc = torch.zeros_like(c)
+    deg = torch.zeros(c.shape[:2], dtype=torch.int32, device=c.device)
+    zero = torch.zeros((), dtype=c.dtype, device=c.device)
+    for cs, adj in _window_sources(c, pos, mask, r2, halo, 0.0):
+        acc = acc + torch.where(adj[..., None], cs, zero)
+        deg = deg + adj
+    return acc, deg
 
 
 def window_max_bwd_torch(
@@ -120,15 +150,18 @@ def window_max_bwd_torch(
     ``_window_max_bwd``.  Padded rows (``padded_rows``) take no part: a
     padded source gets 0 whatever m and g hold, and a padded query
     contributes nothing.  Each source sums its terms in ascending query
-    order, which the CUDA kernel repeats, so the two agree bit for bit."""
+    order, which the CUDA kernel repeats, so the two agree bit for bit.
+    The sums run in float32 from 0 whatever the values' type (g is cast
+    first), and ``dc`` is rounded to ``c.dtype`` once at the end, as the
+    TPU kernel's float32 accumulator is."""
     B, N, H = c.shape
     eta, phi = pos[..., 0], pos[..., 1]
     real = ~padded_rows(pos)
     finite = torch.isfinite(m)
     m_safe = torch.where(finite, m, torch.full_like(m, float("inf")))
-    zero = torch.zeros((), dtype=g.dtype, device=g.device)
-    g_safe = torch.where(finite, g, zero)
-    dc = torch.zeros_like(c)
+    zero = torch.zeros((), dtype=torch.float32, device=g.device)
+    g_safe = torch.where(finite, g.float(), zero)
+    dc = torch.zeros(c.shape, dtype=torch.float32, device=c.device)
     w = min(halo, N - 1)
     for d in range(-w, w + 1):          # query q = s + d, ascending
         s = slice(max(0, -d), min(N, N - d))
@@ -137,7 +170,7 @@ def window_max_bwd_torch(
                 & real[:, q] & real[:, s])[..., None]
                & (c[:, s] == m_safe[:, q]))
         dc[:, s] += torch.where(hit, g_safe[:, q], zero)
-    return dc
+    return dc.to(c.dtype)
 
 
 def window_chunks_needed(pos: torch.Tensor, rows: int, chunk: int, halo: int,
@@ -194,14 +227,30 @@ def window_chunks_needed(pos: torch.Tensor, rows: int, chunk: int, halo: int,
 
 
 def edgeconv_terms(x: torch.Tensor, weight: torch.Tensor,
-                   bias: Optional[torch.Tensor]):
+                   bias: Optional[torch.Tensor],
+                   dtype: Optional[torch.dtype] = None):
     """Split the linear edge MLP ``[x_i ‖ x_j − x_i] @ W + b`` into the
     per-target term ``a = x (W_self − W_diff) + b`` and the per-source term
-    ``c = x W_diff`` (``weight`` is ``[2H, Hout]``, rows [self; diff])."""
+    ``c = x W_diff`` (``weight`` is ``[2H, Hout]``, rows [self; diff]).
+
+    ``dtype=torch.bfloat16`` is the JAX package's bf16 path
+    (``window_edgeconv_linear_pallas(dtype=...)``): x, W_diff and
+    W_self − W_diff are rounded to bf16, each product of them is taken in
+    float32 (a product of two bf16 values is exact in float32, and the sum
+    accumulates in float32), the bias is added to ``a`` in float32, and
+    ``c`` is rounded to bf16 once.  Each GEMM upcasts its operands through
+    its own ``.float()``, so that autograd rounds each GEMM's input
+    gradient to bf16 on its own and sums the two of x in bf16, as JAX's
+    transpose does; ``a`` stays float32."""
     H = x.shape[-1]
     w_self, w_diff = weight[:H], weight[H:]
-    c = torch.matmul(x, w_diff)
-    a = torch.matmul(x, w_self - w_diff)
+    if dtype in (None, torch.float32):
+        c = torch.matmul(x, w_diff)
+        a = torch.matmul(x, w_self - w_diff)
+    else:
+        xe, wd, ws = x.to(dtype), w_diff.to(dtype), (w_self - w_diff).to(dtype)
+        c = torch.matmul(xe.float(), wd.float()).to(dtype)
+        a = torch.matmul(xe.float(), ws.float())
     if bias is not None:
         a = a + bias
     return a, c
@@ -209,7 +258,9 @@ def edgeconv_terms(x: torch.Tensor, weight: torch.Tensor,
 
 def combine(a: torch.Tensor, m: torch.Tensor, mask: torch.Tensor):
     """``a + m`` where the node is real and has a neighbour, else 0 (the
-    PyG empty-neighbourhood convention)."""
+    PyG empty-neighbourhood convention); ``m`` is cast to float32 first,
+    as the JAX package casts its bf16 window max."""
+    m = m.float()
     has = torch.isfinite(m[..., :1]) & mask[..., None]
     zero = torch.zeros((), dtype=a.dtype, device=a.device)
     return torch.where(has, a + torch.where(has, m, zero), zero)
@@ -222,12 +273,22 @@ def window_edgeconv_linear(
     bias: Optional[torch.Tensor],
     reduction: str = "max",
 ) -> torch.Tensor:
-    """EdgeConv(linear MLP, max) over the implicit eta-sorted radius graph;
-    equals the explicit uncapped radius graph whenever ``g.halo`` >=
-    data/sorting.required_halo.  Only 'max' is ported."""
-    if reduction != "max":
-        raise NotImplementedError(
-            f"window reduction {reduction!r} is not ported; only 'max'")
+    """EdgeConv(linear MLP) over the implicit eta-sorted radius graph, in
+    float32; equals the explicit uncapped radius graph whenever ``g.halo``
+    >= data/sorting.required_halo.  'max' and 'mean' give 0 at a node
+    without a neighbour ('mean' divides by max(deg, 1)); 'sum' is
+    ``deg·a + Σ c`` with no such mask, as the JAX package's
+    ``window_edgeconv_linear``."""
     a, c = edgeconv_terms(x, weight, bias)
-    m = window_max_torch(c, g.etaphi, g.mask, float(g.r) ** 2, g.halo)
-    return combine(a, m, g.mask)
+    r2 = float(g.r) ** 2
+    if reduction == "max":
+        m = window_max_torch(c, g.etaphi, g.mask, r2, g.halo)
+        return combine(a, m, g.mask)
+    if reduction not in ("mean", "sum"):
+        raise ValueError(f"unknown reduction {reduction!r}")
+    acc, deg = window_sum_torch(c, g.etaphi, g.mask, r2, g.halo)
+    deg = deg[..., None]
+    if reduction == "sum":
+        return deg.to(c.dtype) * a + acc
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    return torch.where(deg > 0, a + acc / torch.clamp(deg, min=1), zero)

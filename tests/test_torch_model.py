@@ -99,9 +99,16 @@ def test_pdg_remap_and_clips_match_jax():
 
 
 def test_own_init_is_seeded_and_bf16_raises():
+    """The seeded init; a bf16 GraphMET builds with the same float32
+    parameters (only its EdgeConvs compute in bf16); a compute_dtype other
+    than float32 or bfloat16 raises."""
     a = GraphMET(generator=torch.Generator().manual_seed(1))
     b = GraphMET(generator=torch.Generator().manual_seed(1))
-    for (pa, ta), (_, tb) in zip(a.jax_layout(), b.jax_layout()):
-        assert torch.equal(ta, tb), pa
-    with pytest.raises(NotImplementedError, match="A9"):
-        GraphMET(ModelConfig(compute_dtype="bfloat16"))
+    bf = GraphMET(ModelConfig(compute_dtype="bfloat16"),
+                  generator=torch.Generator().manual_seed(1))
+    for (pa, ta), (_, tb), (_, tc) in zip(a.jax_layout(), b.jax_layout(),
+                                          bf.jax_layout()):
+        assert torch.equal(ta, tb) and torch.equal(ta, tc), pa
+    assert all(p.dtype == torch.float32 for p in bf.parameters())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        GraphMET(ModelConfig(compute_dtype="float16"))

@@ -264,10 +264,7 @@ def test_u_perp_par_loss_matches_jax(small):
 
 @pytest.mark.parametrize("flags", [["--model", "drn", "--mesh", "1x2"],
                                    ["--mesh", "2"], ["--ring_knn"],
-                                   ["--model", "drn", "--ring_knn"],
-                                   ["--model", "drn", "--compute_dtype",
-                                    "bfloat16"],
-                                   ["--compute_dtype", "bfloat16"]])
+                                   ["--model", "drn", "--ring_knn"]])
 def test_train_cli_unported_flags_exit_nonzero(flags, tmp_path):
     from deepmetv2_tpu_torch.cli import train as train_cli
 
@@ -276,6 +273,24 @@ def test_train_cli_unported_flags_exit_nonzero(flags, tmp_path):
                         "--device", "cpu"] + flags)
     assert exc.value.code not in (0, None)
     assert "not ported yet" in str(exc.value.code)
+
+
+@pytest.mark.parametrize("model", ["graphmet", "drn"])
+def test_train_cli_compute_dtype_accepted_and_recorded(model, tmp_path):
+    """``--compute_dtype bfloat16`` is accepted for either family and
+    written into config.json's model section, as the JAX CLI does (its DRN
+    never reads it, nor does the port's); no epoch runs (``--epochs 0``;
+    tests/test_torch_bf16.py trains one in bf16)."""
+    import json
+
+    from deepmetv2_tpu_torch.cli import train as train_cli
+
+    assert train_cli.main(["--synthetic", "8", "--batch_size", "4",
+                           "--epochs", "0", "--ckpts", str(tmp_path),
+                           "--device", "cpu", "--model", model,
+                           "--compute_dtype", "bfloat16"]) == 0
+    with open(osp.join(str(tmp_path), "config.json")) as f:
+        assert json.load(f)["model"]["compute_dtype"] == "bfloat16"
 
 
 def test_train_cli_needs_a_gpu_unless_cpu(tmp_path):

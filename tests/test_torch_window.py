@@ -218,8 +218,8 @@ def test_unported_paths_raise():
     g = WindowGraph(torch.zeros(1, 4, 2), torch.ones(1, 4, dtype=torch.bool))
     with pytest.raises(NotImplementedError):
         edgeconv(x, object(), w, None)
-    with pytest.raises(NotImplementedError):
-        edgeconv(x, g, w, None, "sum")
+    with pytest.raises(ValueError, match="unknown reduction"):
+        edgeconv(x, g, w, None, "median")
     with pytest.raises(ValueError, match="unsupported device"):
         tcu.window_max(torch.zeros(1, 4, 8, device="meta"),
                        torch.zeros(1, 4, 2, device="meta"), R2, 2)
