@@ -66,6 +66,20 @@ Phases, each printing one line:
      --compute_dtype bfloat16 for 1 epoch (its "feed:" line, exact bf16
      launch counts with replays), its best.ckpt re-evaluated within
      REEVAL_RTOL;
+  8d. the mesh (parallel/), two ranks sharing the card through gloo
+     (collectives staged through host copies), spawned once:
+     mesh_dp_train (--mesh 2) and mesh_ep_train (--mesh 1x2), 10 steps
+     resumed from ckpts_syn/best.ckpt as mesh chains of 8 and 2, each loss
+     within LOSS_RTOL of GOLDEN_TRAIN_LOSSES, the exact f32 window
+     launches on each rank; mesh_ep_kernel, the sharded window max on one
+     full-width batch bitwise the single-device kernel on real rows, its
+     gradient within GRAD_ATOL of the largest; mesh_evaluate (--mesh 2),
+     the evaluate CLI's pass within LOSS_RTOL of GOLDEN_LOSS, and the DRN's
+     (composed, the JAX mesh path) held by drn_golden_rule to
+     GOLDEN_DRN_COMPOSED_*; then mesh_world1 (--mesh 1 on NCCL in this
+     process), 3 steps bitwise the single-device step's; mesh_cli, the train
+     CLI with --mesh 1x2 for 1 epoch (it spawns its ranks), each rank's
+     exact launches, best.ckpt re-evaluated within REEVAL_RTOL;
   9. kernel_knn: the DRN's graph kernels knn_kth and knn_extract against
      their plain versions, bitwise (t, sq, idx, d2v, rel), on (a) the
      DRN's own round-1 features of an evaluation batch (B=40, N=2048,
@@ -135,6 +149,7 @@ build/ in the checkout.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -876,12 +891,21 @@ def drn_model(device):
                                  payload["bn_state"]).eval(), cfg
 
 
+@functools.lru_cache(maxsize=None)
+def smoke_events(n: int = 2000):
+    """``synthetic_events(n, seed=42)``, generated once in a process (the
+    phases that call it only read them)."""
+    from deepmetv2_tpu_torch.data import synthetic_events
+
+    return synthetic_events(n, seed=42)
+
+
 def drn_val_loader(cfg, batch_size: int):
     """The validation loader of synthetic 2000 (seed 42, split 0.2), as the
     evaluate CLI builds it."""
-    from deepmetv2_tpu_torch.data import fetch_dataloader, synthetic_events
+    from deepmetv2_tpu_torch.data import fetch_dataloader
 
-    return fetch_dataloader(events=synthetic_events(2000, seed=42),
+    return fetch_dataloader(events=smoke_events(),
                             batch_size=batch_size, validation_split=0.2,
                             buckets=cfg.data.node_buckets)["test"]
 
@@ -2825,6 +2849,464 @@ def bf16_train_phase(work: str):
     return want["window_max_bf16"], want["window_max_bwd_bf16"]
 
 
+# --------------------------------------------------------------- the mesh
+# The mesh phases run the port's parallel/ package on this one card: two
+# ranks that share it through gloo (collectives staged through host copies,
+# parallel/mesh.py) for --mesh 2 and --mesh 1x2, and one rank on NCCL for
+# --mesh 1.  Their times measure the staging, not the design.
+
+MESH_EVAL_B = 40        # the evaluate CLI's batch
+MESH_CLI_EVENTS = 400   # the --mesh 1x2 CLI run's synthetic events
+
+
+@functools.lru_cache(maxsize=None)
+def resume_hosts():
+    """The first 10 cell-sorted train batches of synthetic 2000 (batch 8),
+    those of train_resume_phase."""
+    import itertools
+
+    from deepmetv2_tpu_torch.data import fetch_dataloader
+
+    ld = fetch_dataloader(events=smoke_events(), batch_size=TRAIN_B,
+                          presort_eta=True, presort_mode="cell")["train"]
+    return list(itertools.islice(iter(ld), len(GOLDEN_TRAIN_LOSSES)))
+
+
+def mesh_resume_setup(device):
+    """(model, optimizer, config, the first 10 cell-sorted train batches):
+    ckpts_syn/best.ckpt resumed as train_resume_phase resumes it."""
+    import dataclasses
+
+    from deepmetv2_tpu_torch.cli.common import load_run_config
+    from deepmetv2_tpu_torch.models.graph_met import GraphMET
+    from deepmetv2_tpu_torch.train.checkpoint import restore_checkpoint
+    from deepmetv2_tpu_torch.train.schedule import ReduceLROnPlateau
+    from deepmetv2_tpu_torch.train.step import make_optimizer
+
+    ck = os.path.join(HERE, "ckpts_syn")
+    cfg = load_run_config(ck)
+    cfg = dataclasses.replace(cfg, graph=dataclasses.replace(
+        cfg.graph, mode="window", window_halo=TRAIN_HALO, presorted=True))
+    model = GraphMET(cfg.model, device=device)
+    opt = make_optimizer(cfg, model)
+    restore_checkpoint(os.path.join(ck, "best.ckpt"), model, opt,
+                       ReduceLROnPlateau(lr=cfg.optim.lr))
+    return model, opt, cfg, resume_hosts()
+
+
+def ep_launches_per_conv(n_nodes: int, n_node: int, halo: int) -> int:
+    """Window-kernel launches of one sharded EdgeConv (forward or
+    backward): two in the overlap schedule (local shard, boundary strips),
+    one in the serial one (parallel/halo.py)."""
+    from deepmetv2_tpu_torch.parallel.halo import halo_pad
+
+    return 2 if n_nodes // n_node >= 2 * halo_pad(halo) else 1
+
+
+def mesh_train_rank(device, dims):
+    """One rank's 10 resumed steps on a (data, node) mesh through the mesh
+    chain runner (chains of 8 and 2), each rank staging its own rows; its
+    losses, window launches (counted from 0) and the launches the schedule
+    predicts."""
+    import torch
+    from deepmetv2_tpu_torch.data import to_device
+    from deepmetv2_tpu_torch.parallel.mesh import Mesh, shard_batch
+    from deepmetv2_tpu_torch.train.chain import (make_chained_train_step,
+                                                 stack_batches)
+
+    mesh = Mesh(*dims, device=device)
+    shard = dims[1] > 1
+    model, opt, cfg, hosts = mesh_resume_setup(device)
+    runner = make_chained_train_step(cfg, "graphmet", mesh, shard)
+    per = [ep_launches_per_conv(h.x_cont.shape[1], dims[1], TRAIN_HALO)
+           if shard else 1 for h in hosts]
+    want = 2 * sum(per)                       # 2 EdgeConvs a step
+    losses = []
+    window_counts(zero=True)
+    t = time.perf_counter()
+    for chain in (hosts[:8], hosts[8:]):
+        if not chain:
+            continue
+        local = shard_batch(stack_batches(chain), mesh, shard, chained=True)
+        losses += runner(model, opt, to_device(local, device)).tolist()
+    torch.cuda.synchronize()
+    return dict(losses=losses, launches=window_counts(), want=want,
+                seconds=time.perf_counter() - t, mesh=mesh.describe())
+
+
+def mesh_window_rank(device):
+    """The sharded window max on the 1x2 mesh against the single-device
+    kernel on one full-width batch (the first train batch's positions,
+    cell order, halo TRAIN_HALO, random c at H=32): the forward bitwise on
+    real rows (−inf on padded ones), the gradient of Σ m² within
+    GRAD_ATOL of its largest entry.  Rank 0 compares and reports."""
+    import torch
+    from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import (window_max,
+                                                              window_max_bwd)
+    from deepmetv2_tpu_torch.ops.window import padded_pos, padded_rows
+    from deepmetv2_tpu_torch.parallel.halo import (halo_pad,
+                                                   window_max_sharded)
+    from deepmetv2_tpu_torch.parallel.mesh import Mesh
+    from deepmetv2_tpu_torch.train.step import _etaphi
+    from deepmetv2_tpu_torch.data import to_device
+
+    mesh = Mesh(1, 2, device=device)
+    _, _, _, hosts = mesh_resume_setup(device)
+    batch = to_device(hosts[0], device)
+    pos = padded_pos(_etaphi(batch), batch.mask).contiguous()
+    gen = torch.Generator().manual_seed(11)
+    c = torch.randn(batch.x_cont.shape[:2] + (32,), generator=gen).to(device)
+    n_loc = c.shape[1] // 2
+    rows = slice(mesh.node_index * n_loc, (mesh.node_index + 1) * n_loc)
+    c_loc = c[:, rows].clone().requires_grad_(True)
+    r2 = R * R
+    m_loc = window_max_sharded(c_loc, pos[:, rows].contiguous(), r2,
+                               TRAIN_HALO, mesh)
+    torch.where(torch.isfinite(m_loc), m_loc, torch.zeros_like(m_loc)).pow(
+        2).sum().backward()
+    m = torch.cat(mesh.all_gather(m_loc.detach(), mesh.node_group), 1)
+    dc = torch.cat(mesh.all_gather(c_loc.grad, mesh.node_group), 1)
+    if mesh.rank != 0:
+        return {}
+    h = halo_pad(TRAIN_HALO)
+    want = window_max(c, pos, r2, h)
+    g = torch.where(torch.isfinite(want), 2 * want, torch.zeros_like(want))
+    want_dc = window_max_bwd(c, pos, want, g, r2, h)
+    real = ~padded_rows(pos)
+    top = float(want_dc.abs().max())
+    return dict(shape=list(c.shape), halo=TRAIN_HALO, halo_pad=h,
+                fwd_bitwise=bitwise_equal(m[real], want[real]),
+                padded_neg_inf=bool(torch.isneginf(m[~real]).all()),
+                max_abs_dc=top, max_dc_diff=float((dc - want_dc).abs().max()))
+
+
+def mesh_eval_rank(device):
+    """GraphMET's validation pass of the evaluate CLI (ckpts_syn,
+    synthetic 2000, batch 40, eta sort on the device, the halo sized on the
+    whole dataset) through the data-parallel evaluation step on 2 ranks:
+    the loss and the rank's window launches."""
+    import argparse
+
+    import torch
+    from deepmetv2_tpu_torch.cli.common import (apply_graph_mode,
+                                                load_run_config)
+    from deepmetv2_tpu_torch.data import fetch_dataloader
+    from deepmetv2_tpu_torch.models.graph_met import GraphMET
+    from deepmetv2_tpu_torch.parallel.dp import (eval_padding,
+                                                 make_sharded_eval)
+    from deepmetv2_tpu_torch.parallel.mesh import Mesh
+    from deepmetv2_tpu_torch.train.checkpoint import load_checkpoint
+    from deepmetv2_tpu_torch.train.loop import evaluate
+
+    mesh = Mesh(2, 1, device=device)
+    ck = os.path.join(HERE, "ckpts_syn")
+    cfg = load_run_config(ck)
+    ld = fetch_dataloader(events=smoke_events(),
+                          batch_size=MESH_EVAL_B, validation_split=0.2,
+                          buckets=cfg.data.node_buckets)["test"]
+    cfg = apply_graph_mode(cfg, argparse.Namespace(graph_mode="window"),
+                           ld.dataset)
+    payload = load_checkpoint(os.path.join(ck, "best.ckpt"))
+    model = GraphMET(cfg.model, device=device).params_from_jax(
+        payload["params"], payload["bn_state"])
+    step, _ = make_sharded_eval(cfg, mesh)
+    window_counts(zero=True)
+    t = time.perf_counter()
+    metrics, _ = evaluate(model, step, ld, cfg, device, verbose=False,
+                          pad=eval_padding(mesh))
+    torch.cuda.synchronize()
+    return dict(loss=metrics["loss"], launches=window_counts(),
+                want=2 * len(ld), seconds=time.perf_counter() - t)
+
+
+def mesh_drn_eval_rank(device):
+    """The DRN's validation pass (ckpts_syn_drn, 400 events at batch 8)
+    through the data-parallel evaluation step on 2 ranks (the composed
+    build and the gather-reduce conv): each batch's loss and MET vectors,
+    and, for drn_golden_rule, this rank's events' graph digests from a
+    second pass of the same forward with its decisions recorded (its MET
+    must equal the step's bit for bit)."""
+    import numpy as np
+    import torch
+    from deepmetv2_tpu_torch.models.drn import drn_net_apply
+    from deepmetv2_tpu_torch.parallel import context as pctx
+    from deepmetv2_tpu_torch.parallel.dp import (DRN_MESH_FORCES,
+                                                 make_sharded_eval)
+    from deepmetv2_tpu_torch.parallel.mesh import Mesh, shard_batch
+    from deepmetv2_tpu_torch.train.loss import drn_met_vector
+
+    mesh = Mesh(2, 1, device=device)
+    model, cfg = drn_model(device)
+    ld = drn_val_loader(cfg, 8)
+    step, place = make_sharded_eval(cfg, mesh, "drn")
+    counters = drn_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, mets, digests, same = [], [], [], True
+    t = time.perf_counter()
+    for host in ld:
+        placed = place(host)
+        v, loss, _ = step(model, placed)
+        losses.append(float(loss))
+        mets.append(v.cpu().numpy())
+        local = shard_batch(placed, mesh)
+        diag = {}
+        with torch.no_grad(), pctx.data_parallel(mesh):
+            pred = drn_net_apply(model.eval(), local, diag, **DRN_MESH_FORCES)
+        rows = v[mesh.data_index * local.batch_size:
+                 (mesh.data_index + 1) * local.batch_size]
+        same = same and bitwise_equal(drn_met_vector(pred, cfg.drn.head),
+                                      rows)
+        digests.append(drn_graph_digests(
+            [[t.cpu().numpy() for t in (m, nbr.idx, nbr.mask, c, p)]
+             for m, nbr, c, p in diag["rounds"]]))
+    torch.cuda.synchronize()
+    return dict(losses=losses, met=np.stack(mets), digests=np.stack(digests),
+                same_met=same, seconds=time.perf_counter() - t,
+                launches={k: fn.launches for k, fn in counters.items()})
+
+
+def mesh_rank_main(rank: int, store: str, out_dir: str) -> None:
+    """A rank of the two-rank group (started by mesh_phases): gloo on the
+    shared card, then the --mesh 2 and --mesh 1x2 train phases, the EP
+    kernel check and both families' data-parallel evaluation; its results
+    into ``out_dir``."""
+    import pickle
+
+    import torch
+    from torch import distributed as dist
+
+    sys.path.insert(0, HERE)
+    from deepmetv2_tpu_torch.parallel import multihost
+
+    devices = multihost.rank_devices("cuda", 2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(multihost.backend_for(devices), "file://" + store,
+                         2, rank, devices[rank])
+    try:
+        out = dict(dp=mesh_train_rank(devices[rank], (2, 1)),
+                   ep=mesh_train_rank(devices[rank], (1, 2)),
+                   ep_kernel=mesh_window_rank(devices[rank]),
+                   eval=mesh_eval_rank(devices[rank]),
+                   drn_eval=mesh_drn_eval_rank(devices[rank]))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def mesh_phases(work: str) -> dict:
+    """mesh_dp_train, mesh_ep_train, mesh_evaluate: two ranks on this card
+    (gloo, staged), spawned once for all three.  Returns the f32 window
+    launches of their main paths, summed over the ranks."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    out_dir = os.path.join(work, "mesh")
+    os.makedirs(out_dir)
+    store = os.path.join(tempfile.mkdtemp(dir=out_dir), "store")
+    t = time.perf_counter()
+    try:
+        torch.multiprocessing.start_processes(
+            mesh_rank_main, args=(store, out_dir), nprocs=2,
+            start_method="spawn")
+    except (torch.multiprocessing.ProcessRaisedException,
+            torch.multiprocessing.ProcessExitedException) as e:
+        fail(f"a mesh rank failed: {e}")
+    sec = time.perf_counter() - t
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    fwd = bwd = 0
+    for key, mesh in (("dp", "--mesh 2"), ("ep", "--mesh 1x2")):
+        a, b = ranks[0][key], ranks[1][key]
+        rel = [abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                   GOLDEN_TRAIN_LOSSES)]
+        say(f"mesh_{key}_train", mesh=mesh, layout=a["mesh"],
+            losses=a["losses"], golden=GOLDEN_TRAIN_LOSSES,
+            max_rel_err=max(rel), launches_by_rank=[a["launches"],
+                                                    b["launches"]],
+            want_launches=a["want"], seconds=[a["seconds"], b["seconds"]],
+            spawn_seconds=sec, card=CARD)
+        if a["losses"] != b["losses"]:
+            fail(f"{mesh}: the ranks report different losses")
+        if not max(rel) <= LOSS_RTOL:
+            fail(f"{mesh}: resumed losses not within {LOSS_RTOL} of "
+                 f"GOLDEN_TRAIN_LOSSES: {a['losses']}")
+        for r, x in enumerate((a, b)):
+            want = {"window_max": x["want"], "window_max_bwd": x["want"]}
+            if {k: v for k, v in x["launches"].items() if v} != want:
+                fail(f"{mesh}: rank {r} launched {x['launches']}, want "
+                     f"{want}")
+            fwd += x["launches"]["window_max"]
+            bwd += x["launches"]["window_max_bwd"]
+    k = ranks[0]["ep_kernel"]
+    say("mesh_ep_kernel", **k)
+    if not (k["fwd_bitwise"] and k["padded_neg_inf"]):
+        fail("the sharded window max is not bitwise the single-device "
+             "kernel's on real rows (or not -inf on padded ones)")
+    if not k["max_dc_diff"] <= GRAD_ATOL * k["max_abs_dc"]:
+        fail(f"the sharded window max's gradient is {k['max_dc_diff']} from "
+             f"the single-device kernel's (largest {k['max_abs_dc']})")
+    ev = [x["eval"] for x in ranks]
+    loss = ev[0]["loss"]
+    say("mesh_evaluate", mesh="--mesh 2", loss=loss, golden=GOLDEN_LOSS,
+        rel_err=abs(loss - GOLDEN_LOSS) / GOLDEN_LOSS,
+        launches_by_rank=[e["launches"] for e in ev],
+        seconds=[e["seconds"] for e in ev])
+    if ev[1]["loss"] != loss:
+        fail("mesh evaluate: the ranks report different losses")
+    if not abs(loss - GOLDEN_LOSS) <= LOSS_RTOL * GOLDEN_LOSS:
+        fail(f"mesh evaluate loss {loss} not within {LOSS_RTOL} of "
+             f"{GOLDEN_LOSS}")
+    for r, e in enumerate(ev):
+        if {k: v for k, v in e["launches"].items() if v} != {
+                "window_max": e["want"]}:
+            fail(f"mesh evaluate: rank {r} launched {e['launches']}, want "
+                 f"{e['want']} window_max")
+        fwd += e["launches"]["window_max"]
+    d = [x["drn_eval"] for x in ranks]
+    if not (d[0]["same_met"] and d[1]["same_met"]):
+        fail("mesh DRN evaluate: the recorded pass's MET is not the mesh "
+             "step's")
+    if any(any(x["launches"].values()) for x in d):
+        fail(f"mesh DRN evaluate launched {[x['launches'] for x in d]}")
+    from deepmetv2_tpu_torch.cli.common import load_run_config
+
+    ld = drn_val_loader(load_run_config(os.path.join(HERE, DRN_CKPTS)), 8)
+    n = sum(len(ids) for ids in ld._batches)
+    half = d[0]["digests"].shape[1]
+    graphs = np.concatenate([np.concatenate([d[0]["digests"][i],
+                                             d[1]["digests"][i]])
+                             for i in range(len(d[0]["digests"]))])
+    met = d[0]["met"].reshape(-1, 2)
+    keep = np.concatenate([np.arange(len(ids)) + i * 2 * half
+                           for i, ids in enumerate(ld._batches)])
+    drn_golden_rule("mesh_drn_evaluate", ld, d[0]["losses"], met[keep][:n],
+                    graphs[keep][:n], GOLDEN_DRN_COMPOSED_MET,
+                    GOLDEN_DRN_COMPOSED_GRAPHS, mesh="--mesh 2",
+                    golden_loss=GOLDEN_DRN_COMPOSED_LOSS,
+                    seconds=[x["seconds"] for x in d])
+    return dict(fwd=fwd, bwd=bwd)
+
+
+def mesh_world1_phase(device, work: str) -> dict:
+    """--mesh 1 on NCCL in this process: 3 resumed data-parallel steps
+    against 3 single-device steps on the same batches, losses, parameters,
+    BatchNorm buffers and AdamW state bitwise."""
+    import torch
+    from torch import distributed as dist
+    from deepmetv2_tpu_torch.data import to_device
+    from deepmetv2_tpu_torch.parallel import multihost
+    from deepmetv2_tpu_torch.parallel.dp import make_dp_train_step
+    from deepmetv2_tpu_torch.parallel.mesh import Mesh
+    from deepmetv2_tpu_torch.train.step import make_train_step
+
+    os.makedirs(os.path.join(work, "mesh_world1"))
+    store = os.path.join(work, "mesh_world1", "store")
+    devices = multihost.rank_devices(device, 1)
+    backend = multihost.backend_for(devices)
+    multihost.initialize(backend, "file://" + store, 1, 0, devices[0])
+    try:
+        mesh = Mesh(1, 1, device=devices[0])
+        runs = []
+        for make in (make_train_step, lambda cfg: make_dp_train_step(cfg,
+                                                                     mesh)):
+            model, opt, cfg, hosts = mesh_resume_setup(device)
+            step = make(cfg)
+            window_counts(zero=True)
+            losses = torch.stack([step(model, opt, to_device(h, device))
+                                  for h in hosts[:3]])
+            runs.append((losses, train_state(model, opt)))
+        launches = window_counts()            # the mesh run's
+    finally:
+        dist.destroy_process_group()
+    (la, sa), (lb, sb) = runs
+    diff = run_differ(la, sa, lb, sb)
+    say("mesh_world1", mesh="--mesh 1", backend=backend,
+        layout=mesh.describe(), losses=la.tolist(), differ=diff,
+        launches=launches)
+    if backend != "nccl":
+        fail(f"--mesh 1 on one card took {backend}, not nccl")
+    if any(diff.values()):
+        fail(f"--mesh 1 is not bitwise the single-device step: {diff}")
+    if launches["window_max"] != 6 or launches["window_max_bwd"] != 6:
+        fail(f"--mesh 1 launched {launches}, want 6 of each f32 kernel")
+    return dict(fwd=launches["window_max"], bwd=launches["window_max_bwd"])
+
+
+def mesh_cli_phase(work: str) -> dict:
+    """The train CLI with --mesh 1x2 for 1 epoch on MESH_CLI_EVENTS
+    synthetic events, as a user starts it (it
+    spawns its 2 ranks, which share this card through gloo): its mesh and
+    feed lines, each rank's exact window launches (the overlap or serial
+    schedule of each batch's shard), the artifacts, and best.ckpt
+    re-evaluated by the evaluate CLI within REEVAL_RTOL."""
+    import re
+
+    from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
+    from deepmetv2_tpu_torch.data import fetch_dataloader
+
+    ck = os.path.join(work, "mesh_cli")
+    cmd = [sys.executable, "-m", "deepmetv2_tpu_torch.cli.train",
+           "--synthetic", str(MESH_CLI_EVENTS), "--batch_size", str(TRAIN_B),
+           "--epochs", "1", "--mesh", "1x2", "--ckpts", ck]
+    t = time.perf_counter()
+    r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                       timeout=600)
+    sec = time.perf_counter() - t
+    lines = r.stdout.splitlines()
+    if r.returncode != 0:
+        fail(f"train CLI --mesh 1x2 exited {r.returncode}:\n"
+             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    halo = int(re.search(r"graph mode: window \(halo (\d+), order eta\)",
+                         r.stdout).group(1))
+    counts = json.loads([ln for ln in lines if ln.startswith(
+        "launches by rank:")][0].split(":", 1)[1])
+    ld = fetch_dataloader(events=smoke_events(MESH_CLI_EVENTS),
+                          batch_size=TRAIN_B, presort_eta=True,
+                          presort_mode="eta")
+    convs = 2
+    per = sum(ep_launches_per_conv(b.x_cont.shape[1], 2, halo)
+              for b in ld["train"]) * convs
+    want = {"window_max": per + convs * len(ld["test"]),
+            "window_max_bwd": per}
+    say("mesh_cli", argv=cmd[3:], seconds=sec, launches_by_rank=counts,
+        want=want, epoch_seconds=epoch_seconds(r.stdout), card=CARD,
+        log=[ln for ln in lines if ln.startswith(
+            ("graph mode", "mesh:", "feed:", "Training epoch", "- Eval"))])
+    if "feed: resident, chain 8, eager (mesh)" not in lines:
+        fail("train CLI --mesh 1x2 did not print its eager mesh feed")
+    if not any(ln.startswith("mesh: 1 data x 2 node over 2 ranks, backend "
+                             "gloo, collectives staged") for ln in lines):
+        fail("train CLI --mesh 1x2 did not print its staged gloo mesh")
+    for rank, c in enumerate(counts):
+        if {k: v for k, v in c.items() if v} != want:
+            fail(f"train CLI --mesh 1x2: rank {rank} launched {c}, want "
+                 f"{want}")
+    with open(os.path.join(ck, "metrics_val_best.json")) as f:
+        best = json.load(f)["loss"]
+    ev = os.path.join(work, "mesh_cli_eval")
+    os.makedirs(ev)
+    for f in ("config.json", "best.ckpt"):
+        shutil.copy(os.path.join(ck, f), ev)
+    got = evaluate_cli.run(["--synthetic", str(MESH_CLI_EVENTS), "--ckpts",
+                            ev, "--batch_size", str(TRAIN_B)])["loss"]
+    rel = abs(got - best) / abs(best)
+    say("mesh_cli_reeval", metrics_val_best=best, evaluate_cli=got,
+        rel_err=rel)
+    if not rel <= REEVAL_RTOL:
+        fail(f"evaluate CLI gives {got} on the --mesh 1x2 run's best.ckpt, "
+             f"not within {REEVAL_RTOL} of its metrics_val_best.json {best}")
+    return dict(fwd=sum(c["window_max"] for c in counts),
+                bwd=sum(c["window_max_bwd"] for c in counts))
+
+
 def main() -> int:
     t_run = time.perf_counter()
     import torch
@@ -2942,6 +3424,14 @@ def main() -> int:
     bf16_train_resume_phase(device)
     bf16_train_fwd, bf16_train_bwd = bf16_train_phase(work)
 
+    # 8d. the mesh: --mesh 2 and --mesh 1x2 on two ranks sharing this card
+    # (resumed steps, the sharded window max against the kernel, both
+    # families' evaluation), --mesh 1 on NCCL, the train CLI with --mesh 1x2
+    mesh_runs = [mesh_phases(work), mesh_world1_phase(device, work),
+                 mesh_cli_phase(work)]
+    mesh_fwd = sum(m["fwd"] for m in mesh_runs)
+    mesh_bwd = sum(m["bwd"] for m in mesh_runs)
+
     # 9-10. the DRN's kernels against their plain versions
     drn, drn_cfg = drn_model(device)
     drn_batch = to_device(next(iter(drn_val_loader(drn_cfg, DRN_B))), device)
@@ -2990,12 +3480,12 @@ def main() -> int:
         "name": "window_max_fwd", "route": "cuda",
         "source": src + "window_max.cu",
         "replaces": "deepmetv2_tpu/ops/pallas/edgeconv_window.py:82",
-        "launches": eval_launches + pred_launches + train_fwd,
+        "launches": eval_launches + pred_launches + train_fwd + mesh_fwd,
         "library_ms": None}, **fwd), dict({
         "name": "window_max_bwd", "route": "cuda",
         "source": src + "window_max.cu",
         "replaces": "deepmetv2_tpu/ops/pallas/edgeconv_window.py:143",
-        "launches": train_bwd, "library_ms": None}, **bwd), dict({
+        "launches": train_bwd + mesh_bwd, "library_ms": None}, **bwd), dict({
         "name": "window_max_fwd_bf16", "route": "cuda",
         "source": src + "window_max.cu",
         "replaces": "deepmetv2_tpu/ops/pallas/edgeconv_window.py:82",

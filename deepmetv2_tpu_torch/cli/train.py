@@ -21,15 +21,30 @@ the device; the line "feed: ..." names it), as the JAX CLI has no flag
 for it; ``--restore_file`` resumes from a checkpoint of either package,
 ``--from_torch`` warm-starts GraphMET from a reference ``.pth.tar``;
 ``--compute_dtype bfloat16`` runs GraphMET's EdgeConvs in bf16 and is
-recorded in ``config.json``.  The JAX flags of paths not ported yet
-(``--mesh``, ``--ring_knn``) are accepted and exit non-zero with "not
-ported yet".
+recorded in ``config.json``.
+
+``--mesh D`` trains data parallel over D ranks, ``--mesh DxN`` (GraphMET)
+edge-partitioned over D×N ranks with the halo exchange (parallel/);
+the batch size must divide by D and the node buckets by N, and the host
+sort defaults to eta order for DxN runs.  Not under torchrun, the CLI
+spawns its D·N ranks itself (``--mesh 1`` runs its one rank in-process);
+under torchrun (RANK, WORLD_SIZE, MASTER_ADDR in the environment) each
+process is one rank.  Each rank gets a card of its own where there are
+enough (NCCL), else all share the requested one (gloo, collectives
+staged through host copies), or the CPU (gloo); the "mesh:" line says
+which.  Mesh chains are eager steps.  Flags of paths not ported yet
+(``--model drn --mesh DxN`` with N > 1, ``--ring_knn``) exit non-zero with
+"not ported yet".
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
+import shutil
+import tempfile
 
 import numpy as np
 import torch
@@ -40,6 +55,7 @@ from deepmetv2_tpu_torch.config import Config, DataConfig
 from deepmetv2_tpu_torch.data import fetch_dataloader, synthetic_events
 from deepmetv2_tpu_torch.models.drn import DRN
 from deepmetv2_tpu_torch.models.graph_met import GraphMET
+from deepmetv2_tpu_torch.parallel import multihost
 from deepmetv2_tpu_torch.train.loop import feed_line, fit
 from deepmetv2_tpu_torch.train.step import make_optimizer
 
@@ -94,16 +110,57 @@ def build_parser() -> argparse.ArgumentParser:
                         "bfloat16 runs the conv GEMMs on bf16 operands with "
                         "float32 sums and the window max on bf16 values; "
                         "positions and adjacency stay float32")
-    # the JAX package's flags of paths that are not ported yet
-    p.add_argument("--mesh", default=None, metavar="DxN")
+    p.add_argument("--mesh", default=None, metavar="DxN",
+                   help="train over a mesh of ranks: 'D' data parallel over "
+                        "D ranks, 'DxN' data x node (edge-partitioned window "
+                        "mode with halo exchange), e.g. --mesh 2 or --mesh "
+                        "1x2; batch_size must divide by D, node buckets by N")
+    # the JAX package's flag of a path that is not ported yet
     p.add_argument("--ring_knn", action="store_true")
     return p
 
 
-def unported(args) -> list:
-    """The flags given that select a path the port does not have yet."""
-    return [f"--{flag}" for flag in ("mesh", "ring_knn")
-            if getattr(args, flag)]
+def parse_mesh(spec):
+    """'D' or 'DxN' → (n_data, n_node), with a readable error on malformed
+    values like '4x' or '2x4x1' (the JAX CLI's ``parse_mesh``)."""
+    if not spec:
+        return None
+    parts = spec.lower().split("x")
+    try:
+        dims = [int(p) for p in parts]
+    except ValueError:
+        dims = []
+    if not dims or len(dims) > 2 or any(d < 1 for d in dims):
+        raise SystemExit(f"--mesh: expected 'D' or 'DxN' with positive "
+                         f"integers (e.g. 4 or 2x4), got {spec!r}")
+    return (dims[0], dims[1] if len(dims) > 1 else 1)
+
+
+def check_flags(args):
+    """Refuse what the port does not have yet and a mesh the batches do not
+    divide over (the JAX CLI's checks, cli/train.py:283-298); returns the
+    mesh's (n_data, n_node) or None."""
+    dims = parse_mesh(args.mesh)
+    bad = (["--ring_knn"] if args.ring_knn else []) + (
+        [f"--model drn --mesh {args.mesh}"]
+        if args.model == "drn" and dims and dims[1] > 1 else [])
+    if bad:
+        raise SystemExit(f"{', '.join(bad)}: not ported yet (ROADMAP A8c; "
+                         "the JAX package deepmetv2_tpu.cli.train has it)")
+    check_from_torch(args)
+    if dims:
+        n_data, n_node = dims
+        if n_node > 1 and args.graph_mode != "window":
+            raise SystemExit(f"--mesh {args.mesh}: edge partitioning runs "
+                             "window mode (--graph_mode window)")
+        if args.batch_size % n_data:
+            raise SystemExit(f"--mesh: batch_size {args.batch_size} not "
+                             f"divisible by data axis {n_data}")
+        bad = [b for b in DataConfig().node_buckets if b % n_node]
+        if bad:
+            raise SystemExit(f"--mesh: node buckets {bad} not divisible by "
+                             f"node axis {n_node}")
+    return dims
 
 
 def drn_data_init(dataset, indices):
@@ -129,13 +186,66 @@ def drn_data_init(dataset, indices):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    bad = unported(args)
-    if bad:
-        raise SystemExit(f"{', '.join(bad)}: not ported yet (the JAX package "
-                         "deepmetv2_tpu.cli.train has it)")
-    check_from_torch(args)
-    device = resolve_device(args.device)
+    dims = check_flags(args)
+    if dims is None:
+        return run(args, resolve_device(args.device))
+    if multihost.from_environment():
+        rank, world, _ = multihost.environment_rank()
+        if world != dims[0] * dims[1]:
+            raise SystemExit(f"--mesh {args.mesh} needs {dims[0] * dims[1]} "
+                             f"processes; the launcher started {world}")
+        return run_rank(args, dims, rank, None)
+    world = dims[0] * dims[1]
+    store = tempfile.mkdtemp(prefix="deepmet_mesh_")
+    init = "file://" + os.path.join(store, "store")
+    try:
+        if world == 1:
+            return run_rank(args, dims, 0, init)
+        torch.multiprocessing.start_processes(
+            _spawned_rank, args=(args, dims, init), nprocs=world,
+            start_method="spawn")
+    except (torch.multiprocessing.ProcessRaisedException,
+            torch.multiprocessing.ProcessExitedException) as e:
+        raise SystemExit(f"--mesh {args.mesh}: rank {e.error_index} "
+                         f"failed:\n{e}") from e
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    return 0
 
+
+def _spawned_rank(rank: int, args, dims, init: str) -> None:
+    """A rank the CLI spawned: at most its share of the CPU's threads."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (dims[0] * dims[1])))
+    run_rank(args, dims, rank, init)
+
+
+def run_rank(args, dims, rank: int, init) -> int:
+    """One rank of a mesh run: its device (``multihost.rank_devices``), the
+    process group on the backend those devices ask for, the mesh, then
+    ``run``; the group is torn down at the end."""
+    from torch import distributed as dist
+
+    from deepmetv2_tpu_torch.parallel.mesh import Mesh
+
+    device = resolve_device(args.device)
+    world = dims[0] * dims[1]
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    devices = multihost.rank_devices(
+        device, int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+    multihost.initialize(multihost.backend_for(devices), init, world, rank,
+                         devices[local])
+    try:
+        return run(args, devices[local], Mesh(*dims, device=devices[local]))
+    finally:
+        dist.destroy_process_group()
+
+
+def run(args, device, mesh=None) -> int:
+    """Build the config, loaders and model from ``args`` and train, on
+    ``device``, on a ``mesh`` rank where one is given (only rank 0 prints,
+    and it prints each rank's kernel launches at the end)."""
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
+    shard_nodes = mesh is not None and mesh.n_node > 1
     cfg = Config(data=DataConfig(batch_size=args.batch_size))
     optim = {k: v for k, v in (("lr", args.lr),
                                ("grad_clip_norm", args.grad_clip),
@@ -158,15 +268,20 @@ def main(argv=None) -> int:
         # the JAX CLI's warning (cli/train.py:181-189): on its 150-epoch
         # synthetic run the softplus MET went to 0 and the sigmoid phi to pi
         # within one epoch, and training froze
-        print("warning: the polar DRN head saturates easily and can freeze "
-              "training (softplus MET -> 0, sigmoid phi -> pi); "
-              "--drn_head cartesian is the robust choice")
+        say("warning: the polar DRN head saturates easily and can freeze "
+            "training (softplus MET -> 0, sigmoid phi -> pi); "
+            "--drn_head cartesian is the robust choice")
 
     # GraphMET in window mode: the loaders presort each batch once on the
     # host (memoized) and the config is marked presorted, so the steps never
     # sort on the device.  neighbor_list mode needs no order, and the DRN
     # builds its own graphs: no presort.
-    sort_mode = args.sort_mode or "cell"
+    # Edge-partitioned runs sort in eta order by default, which keeps the
+    # exchanged halo smallest (the JAX CLI's choice, cli/train.py:207-215).
+    sort_mode = args.sort_mode or ("eta" if shard_nodes else "cell")
+    if args.sort_mode == "cell" and shard_nodes:
+        say("note: cell-order edge partitioning exchanges the (wider) cell "
+            "span as its halo; 'eta' minimizes the exchanged rows")
     presort = args.graph_mode == "window" and not is_drn
     kw = dict(batch_size=cfg.data.batch_size,
               validation_split=cfg.data.validation_split,
@@ -181,13 +296,19 @@ def main(argv=None) -> int:
     cfg = apply_graph_mode(
         cfg, args, loaders["train"].dataset, presorted=presort,
         loaders=[loaders["train"], loaders["test"]] if presort else None)
-    print(len(loaders["train"]), len(loaders["test"]))
+    say(len(loaders["train"]), len(loaders["test"]))
     if cfg.graph.mode == "window":
-        print(f"graph mode: window (halo {cfg.graph.window_halo}, order "
-              f"{sort_mode if presort else 'eta (device sort)'})")
-    print("device:", device,
-          torch.cuda.get_device_name(device) if device.type == "cuda" else "")
-    print(feed_line(cfg, device))
+        say(f"graph mode: window (halo {cfg.graph.window_halo}, order "
+            f"{sort_mode if presort else 'eta (device sort)'})")
+    say("device:", device,
+        torch.cuda.get_device_name(device) if device.type == "cuda" else "")
+    if mesh is not None:
+        say(f"mesh: {mesh.describe()}"
+            + (" (edge-partitioned)" if shard_nodes else ""))
+        if cfg.model.compute_dtype != "float32":
+            say(f"note: mesh steps compute float32 whatever compute_dtype "
+                f"({cfg.model.compute_dtype}) says, as the JAX package's do")
+    say(feed_line(cfg, device, mesh))
 
     gen = torch.Generator().manual_seed(args.seed)
     if is_drn:
@@ -196,7 +317,7 @@ def main(argv=None) -> int:
         if met_bias > 0:
             cfg = dataclasses.replace(
                 cfg, drn=dataclasses.replace(cfg.drn, output_scale=met_bias))
-        print(f"drn: output scale = mean |genMET| = {met_bias:.1f}; "
+        say(f"drn: output scale = mean |genMET| = {met_bias:.1f}; "
               f"datanorm from training-set feature stds")
         model = DRN(cfg.drn, generator=gen, norm=norm, met_bias=met_bias)
     else:
@@ -209,7 +330,16 @@ def main(argv=None) -> int:
     model.to(device)
     optimizer = make_optimizer(cfg, model)
     fit(model, optimizer, cfg, loaders["train"], loaders["test"], args.ckpts,
-        device, restore_file=args.restore_file)
+        device, restore_file=args.restore_file, mesh=mesh,
+        shard_nodes=shard_nodes)
+    if mesh is not None:
+        from torch import distributed as dist
+
+        from deepmetv2_tpu_torch.ops.cuda import build
+
+        counts = [None] * mesh.world
+        dist.all_gather_object(counts, build.launch_counts())
+        say("launches by rank:", json.dumps(counts))
     return 0
 
 

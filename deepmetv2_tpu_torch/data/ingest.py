@@ -8,7 +8,10 @@
 * rows with pdgId == -999 or charge == -999 (ETL pad fill) are dropped;
 * nan_to_num, then clip to ±5000.
 
-Host numpy only; the native C++ packer route is not ported.
+A whole slice is packed by the native C++ packer (utils/native.py) when
+the library is available, else event by event in numpy, as in the JAX
+package; the two give the same arrays but in px and py, which may differ
+by up to 2 ulp (the C library's cos and sin against numpy's).
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import os.path as osp
 from typing import Iterator, List, Tuple
 
 import numpy as np
+
+from deepmetv2_tpu_torch.utils import native
 
 RAW_PT, RAW_ETA, RAW_PHI = 0, 1, 2
 RAW_D0, RAW_DZ, RAW_MASS, RAW_PUPPI = 3, 4, 5, 6
@@ -57,6 +62,12 @@ def load_npz_events(path: str) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     with np.load(path, allow_pickle=True) as f:
         xs = np.asarray(f["x"], dtype=np.float32)
         ys = np.asarray(f["y"], dtype=np.float32)
+    packed = native.pack_events(xs, clip=CLIP)
+    if packed is not None:
+        out, lengths = packed
+        for ievt in range(xs.shape[1]):
+            yield out[ievt, :lengths[ievt]].copy(), ys[ievt, :]
+        return
     for ievt in range(xs.shape[1]):
         yield event_from_raw(xs[:, ievt, :]), ys[ievt, :]
 

@@ -43,7 +43,8 @@ from torch import nn
 from deepmetv2_tpu_torch.config import DRNConfig
 from deepmetv2_tpu_torch.data.batching import EventBatch, Neighborhood
 from deepmetv2_tpu_torch.models.layout import JaxLayout
-from deepmetv2_tpu_torch.nn.core import MLP, MaskedBatchNorm, elu
+from deepmetv2_tpu_torch.nn.core import (MLP, MaskedBatchNorm, elu,
+                                         masked_moments)
 from deepmetv2_tpu_torch.ops import edge_mlp
 from deepmetv2_tpu_torch.ops.coarsen import global_max_pool, max_pool
 from deepmetv2_tpu_torch.ops.cuda.edge_mlp import edge_mlp_conv
@@ -131,14 +132,10 @@ def _edge_batchnorm(bn: MaskedBatchNorm, msgs: torch.Tensor,
     reference's BatchNorm1d on the ``[E, H]`` message matrix): in
     training, the biased statistics of the valid messages, folded into the
     running buffers (n the number of valid edges), as the JAX package's
-    ``_edge_batchnorm`` does."""
+    ``_edge_batchnorm`` does; in a mesh step, the global batch's valid
+    messages (nn/core.py:masked_moments)."""
     if train:
-        m = edge_mask[..., None]
-        n = torch.clamp(m.sum(), min=1).to(msgs.dtype)
-        zero = torch.zeros((), dtype=msgs.dtype, device=msgs.device)
-        mean = torch.where(m, msgs, zero).sum(dim=(0, 1, 2)) / n
-        diff = torch.where(m, msgs - mean, zero)
-        var = (diff * diff).sum(dim=(0, 1, 2)) / n
+        mean, var, n = masked_moments(msgs, edge_mask[..., None], (0, 1, 2))
         bn.update_running(mean, var, n)
     else:
         mean, var = bn.running_mean, bn.running_var

@@ -67,6 +67,26 @@ def running_update(state: BatchNormState, mean: torch.Tensor,
     )
 
 
+def masked_moments(x: torch.Tensor, m: torch.Tensor, dims: Tuple[int, ...]
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(mean, biased var, n)`` over the rows of ``x`` where ``m`` holds,
+    reduced over ``dims``, in two passes: ``n`` and Σx, then Σ(x − mean)².
+    In a mesh step (parallel/context.py) each of the three sums is taken
+    over the ranks that hold the global batch, through the differentiable
+    all-reduce, so the statistics are the global batch's, as GSPMD makes
+    them in the JAX package's mesh steps; outside one they are this
+    batch's, the same operations with no reduction between them."""
+    from deepmetv2_tpu_torch.parallel.context import batch_sum
+
+    total = batch_sum() or (lambda t: t)
+    n = torch.clamp(total(m.sum()), min=1).to(x.dtype)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    mean = total(torch.where(m, x, zero).sum(dim=dims)) / n
+    diff = torch.where(m, x - mean, zero)
+    var = total((diff * diff).sum(dim=dims)) / n                  # biased
+    return mean, var, n
+
+
 def batchnorm_apply(
     params: Params,
     state: BatchNormState,
@@ -79,14 +99,10 @@ def batchnorm_apply(
     """BatchNorm1d over the real nodes of the batch only: biased variance
     to normalize, unbiased for the running buffer, momentum 0.1 (reference
     model/graph_met_network.py:32,39).  Padded rows get garbage that every
-    consumer masks."""
+    consumer masks.  In a mesh step the statistics are the global batch's
+    (``masked_moments``)."""
     if train:
-        m = mask[..., None]
-        n = torch.clamp(m.sum(), min=1).to(x.dtype)
-        zero = torch.zeros((), dtype=x.dtype, device=x.device)
-        mean = torch.where(m, x, zero).sum(dim=(0, 1)) / n
-        diff = torch.where(m, x - mean, zero)
-        var = (diff * diff).sum(dim=(0, 1)) / n                   # biased
+        mean, var, n = masked_moments(x, mask[..., None], (0, 1))
         new_state = running_update(state, mean, var, n, momentum)
     else:
         mean, var = state.mean, state.var

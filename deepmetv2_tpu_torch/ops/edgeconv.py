@@ -15,8 +15,13 @@ tie rule in the gradient, on float32 values or, with ``dtype=bfloat16``
 XLA.  Over a ``Neighborhood`` (neighbor_list mode) the conv is a gather
 and masked reduce of c in plain PyTorch on either device
 (``edgeconv_linear``), as the JAX package runs it in XLA, and ``dtype``
-is ignored, as there; ``edgeconv_mlp`` takes any edge MLP.  The sharded
-halo-exchange path is ROADMAP A8.
+is ignored, as there; ``edgeconv_mlp`` takes any edge MLP.
+
+In a mesh step (parallel/context.py) the window 'max' path computes in
+float32 whatever ``dtype`` says, as the JAX mesh steps do; under
+``edge_partitioning`` it goes through the halo exchange
+(parallel/halo.py:window_edgeconv_linear_sharded), the counterpart of the
+JAX dispatch in its ``ops/edgeconv.py:edgeconv``.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import (
     window_edgeconv_linear_cuda,
 )
 from deepmetv2_tpu_torch.ops.segment import gather_neighbors, neighbor_reduce
+from deepmetv2_tpu_torch.parallel import context as pctx
 from deepmetv2_tpu_torch.ops.window import (WindowGraph,
                                             window_edgeconv_linear)
 
@@ -51,8 +57,20 @@ def edgeconv(
         raise NotImplementedError(
             f"EdgeConv over {type(graph).__name__}: the port has it over a "
             "Neighborhood or a WindowGraph")
+    ctx = pctx.current()
+    if ctx is not None and ctx.edge_partitioned:
+        if reduction != "max":
+            raise NotImplementedError(
+                f"edge-partitioned window {reduction!r}: the halo path "
+                "aggregates by max only")
+        from deepmetv2_tpu_torch.parallel.halo import (
+            window_edgeconv_linear_sharded)
+
+        return window_edgeconv_linear_sharded(x, graph, weight, bias,
+                                              ctx.mesh)
     if reduction == "max":
-        return window_edgeconv_linear_cuda(x, graph, weight, bias, dtype)
+        return window_edgeconv_linear_cuda(x, graph, weight, bias,
+                                           None if ctx else dtype)
     return window_edgeconv_linear(x, graph, weight, bias, reduction)
 
 

@@ -28,12 +28,17 @@ runner takes back what a capture counted and adds it at every replay
 Pieces, as in the JAX package: ``stack_batches`` / ``chain_batches`` group
 consecutive same-shape host batches (a shape change or the end of the
 epoch flushes a shorter chain); ``make_chained_train_step`` is the chained
-counterpart of ``train/step.make_train_step``.  Mesh training (ROADMAP
-A8) is not ported.
+counterpart of ``train/step.make_train_step``.
+
+On a mesh (parallel/) a chain is a loop of eager mesh steps, on either
+device: the JAX package scans the same steps (its ``train/chain.py``), so
+the losses are per-step equal.  Capturing a mesh chain as one CUDA graph
+waits for a later slice (ROADMAP).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import (Callable, Dict, Iterator, List, NamedTuple, Sequence,
                     Tuple)
 
@@ -170,16 +175,34 @@ class ChainedStep:
         return g.losses.clone()
 
 
+def mesh_train_step(cfg: Config, model: str, mesh,
+                    shard_nodes: bool = False) -> Callable:
+    """The per-step mesh train step of the family ``model``: the
+    edge-partitioned GraphMET step with ``shard_nodes``, else the
+    data-parallel step of either family."""
+    from deepmetv2_tpu_torch.parallel.dp import make_dp_train_step
+    from deepmetv2_tpu_torch.parallel.ep import make_ep_train_step
+
+    if shard_nodes:
+        if model == "drn":
+            raise NotImplementedError(
+                "the node-sharded DRN (--model drn --mesh DxN, N > 1) is not "
+                "ported yet (ROADMAP A8c)")
+        return make_ep_train_step(cfg, mesh)
+    return make_dp_train_step(cfg, mesh, model)
+
+
 def make_chained_train_step(cfg: Config, model: str = "graphmet",
-                            mesh=None) -> ChainedStep:
+                            mesh=None, shard_nodes: bool = False):
     """Chained counterpart of ``train/step.make_train_step`` for the family
     ``model`` ('graphmet' or 'drn'): a ``ChainedStep`` over its train
-    step.  ``mesh`` (mesh training, ROADMAP A8) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError("chained steps on a mesh are not ported "
-                                  "yet (ROADMAP A8)")
+    step, or on a ``mesh`` the loop of its mesh step (``mesh_train_step``)
+    over the chain's K batches, eagerly, in order."""
     if model not in ("graphmet", "drn"):
         raise ValueError(f"unknown model family {model!r}")
+    if mesh is not None:
+        return functools.partial(
+            _run_chain, mesh_train_step(cfg, model, mesh, shard_nodes))
     objective = (drn_objective(cfg) if model == "drn"
                  else graphmet_objective(cfg))
     return ChainedStep(make_train_step(cfg, objective))

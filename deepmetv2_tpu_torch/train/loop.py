@@ -1,5 +1,7 @@
 """Train and evaluate loops (the JAX package's ``train/loop.py``;
-reference train.py:34-145, evaluate.py:31-164), on one device.
+reference train.py:34-145, evaluate.py:31-164), on one device or, with a
+``mesh`` (parallel/), on each rank of a data-parallel or edge-partitioned
+mesh.
 
 The artifact contract is the reference's: ``loss.log`` CSV,
 ``metrics_val_{best,last}.json``, ``{best,last}.resolutions`` (lz4 pickle),
@@ -30,7 +32,8 @@ from deepmetv2_tpu_torch.data.loader import (PaddedLoader, device_feed,
 from deepmetv2_tpu_torch.models.drn import DRN
 from deepmetv2_tpu_torch.train import metrics as metrics_mod
 from deepmetv2_tpu_torch.train.chain import (chain_batches,
-                                             make_chained_train_step)
+                                             make_chained_train_step,
+                                             mesh_train_step)
 from deepmetv2_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                   save_checkpoint)
 from deepmetv2_tpu_torch.train.resident import ResidentFeed, recording
@@ -45,26 +48,31 @@ from deepmetv2_tpu_torch.utils import artifacts
 from deepmetv2_tpu_torch.utils.logging import RunningAverage, StepTimer
 
 
-def feed_line(cfg: Config, device) -> str:
+def feed_line(cfg: Config, device, mesh=None) -> str:
     """The feed ``fit`` runs under ``cfg`` on ``device``, in one line:
-    resident or streaming, the chain length, CUDA graphs or eager steps."""
+    resident or streaming, the chain length, CUDA graphs or eager steps
+    (always eager on a mesh)."""
     chain = max(1, cfg.train.chain_steps)
-    graphs = chain > 1 and torch.device(device).type == "cuda"
+    graphs = (chain > 1 and torch.device(device).type == "cuda"
+              and mesh is None)
+    how = ("CUDA graphs" if graphs
+           else "eager (mesh)" if mesh is not None else "eager")
     return (f"feed: {'resident' if cfg.train.resident_feed else 'streaming'}"
-            f", chain {chain}, {'CUDA graphs' if graphs else 'eager'}")
+            f", chain {chain}, {how}")
 
 
 def train_one_epoch(model, optimizer, train_step, feed, epoch: int, device,
                     log_every: int = 50, verbose: bool = True,
-                    chain: int = 1) -> float:
+                    chain: int = 1, shard=None) -> float:
     """One pass over the training set (reference train.py:34-60); returns
     the mean train loss.  ``feed`` is a ``ResidentFeed`` (its stacks are
     already chained and on the device) or a host loader, whose batches are
     stacked into chains of up to ``chain`` (then ``train_step`` is a
     chained step, train/chain.py) and streamed through
-    ``prefetch_to_device``.  Nodes are counted from the feed's host-side
-    ``meta``; losses stay on the device, with one sync at each log line
-    (at a chain boundary), and are stacked once at the end."""
+    ``prefetch_to_device``, each through ``shard`` first on a mesh (this
+    rank's rows).  Nodes are counted from the feed's host-side ``meta``;
+    losses stay on the device, with one sync at each log line (at a chain
+    boundary), and are stacked once at the end."""
     losses = []
     avg = RunningAverage()
     timer = StepTimer()
@@ -73,8 +81,9 @@ def train_one_epoch(model, optimizer, train_step, feed, epoch: int, device,
         it, total, meta = iter(feed), feed.n_steps, feed.meta
     else:
         meta = []
-        it = prefetch_to_device(recording(chain_batches(iter(feed), chain),
-                                          meta, chain > 1), place=device)
+        stacks = recording(chain_batches(iter(feed), chain), meta, chain > 1)
+        it = prefetch_to_device(map(shard, stacks) if shard else stacks,
+                                place=device)
         total = len(feed)
     done = 0
     for i, batch in enumerate(it):
@@ -98,17 +107,18 @@ def train_one_epoch(model, optimizer, train_step, feed, epoch: int, device,
 
 
 def evaluate(model, eval_step, loader: PaddedLoader, cfg: Config, device,
-             verbose: bool = True) -> Tuple[Dict[str, float], Dict]:
+             verbose: bool = True, pad=None) -> Tuple[Dict[str, float], Dict]:
     """Full validation pass + qT-binned resolution summary, for either
     family's eval step (``(v_met, loss, weights or None)``).  Losses and
     per-event metrics stay on the device until the end of the pass.
-    ``loader`` is a host loader (its batches copied one at a time) or a
-    ``ResidentFeed`` of single batches."""
+    ``loader`` is a host loader (its batches copied one at a time, each
+    through ``pad`` first on a mesh) or a ``ResidentFeed`` of single
+    batches."""
     losses = []
     arrs, qts, evs = [], [], []
     has_deepmet = False
     feed = (iter(loader) if isinstance(loader, ResidentFeed)
-            else device_feed(loader, device))
+            else device_feed(map(pad, loader) if pad else loader, device))
     for batch in feed:
         v_met, loss, _ = eval_step(model, batch)
         losses.append(loss)
@@ -140,7 +150,7 @@ def evaluate(model, eval_step, loader: PaddedLoader, cfg: Config, device,
 def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
         val_loader: PaddedLoader, ckpt_dir: str, device,
         restore_file: Optional[str] = None, epochs: Optional[int] = None,
-        verbose: bool = True) -> None:
+        verbose: bool = True, mesh=None, shard_nodes: bool = False) -> None:
     """The training loop (reference train.py:62-145) for either family:
     epochs of train steps, the plateau step on the mean train loss, then
     validation, checkpoints and artifacts.  The model's class picks the
@@ -152,21 +162,54 @@ def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
     validation epoch staged on the device once.  ``restore_file`` ('best'
     or 'last') resumes model, optimizer and scheduler from a checkpoint of
     either package in ``ckpt_dir``, and the best loss from its
-    ``metrics_val_best.json``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    ``metrics_val_best.json``.
+
+    ``mesh`` (parallel/mesh.py, this rank's view; ``device`` its device)
+    trains on a mesh, as the JAX package's ``fit`` does (loop.py:183-240):
+    data parallel over the ``data`` axis, and with ``shard_nodes``
+    edge-partitioned over the ``node`` axis (GraphMET, window mode,
+    host-sorted batches); each rank stages only its own rows, chains are
+    loops of eager mesh steps, and evaluation is data parallel
+    (parallel/dp.py:make_dp_eval_step on batches padded to a multiple of
+    D).  Every rank reads the checkpoint
+    it resumes from; only rank 0 writes checkpoints, logs and artifacts,
+    and only it prints.  The BatchNorm refresh runs the single-device
+    forward on the whole host batch on every rank, as the JAX package's
+    does."""
+    primary = mesh is None or mesh.rank == 0
+    verbose = verbose and primary
+    if primary:
+        os.makedirs(ckpt_dir, exist_ok=True)
     family = "drn" if isinstance(model, DRN) else "graphmet"
     if family == "drn":
         objective, eval_step = drn_objective(cfg), make_drn_eval_step(cfg)
     else:
         objective, eval_step = graphmet_objective(cfg), make_eval_step(cfg)
     chain = max(1, cfg.train.chain_steps)
-    train_step = (make_chained_train_step(cfg, family) if chain > 1
-                  else make_train_step(cfg, objective))
+    train_shard = eval_pad = None
+    if mesh is not None:
+        from deepmetv2_tpu_torch.parallel.dp import (eval_padding,
+                                                     make_dp_eval_step)
+        from deepmetv2_tpu_torch.parallel.mesh import shard_batch
+
+        train_step = (make_chained_train_step(cfg, family, mesh, shard_nodes)
+                      if chain > 1 else
+                      mesh_train_step(cfg, family, mesh, shard_nodes))
+        eval_step = make_dp_eval_step(cfg, mesh, family)
+        eval_pad = eval_padding(mesh)
+
+        def train_shard(b):
+            return shard_batch(b, mesh, shard_nodes, chained=chain > 1)
+    else:
+        train_step = (make_chained_train_step(cfg, family) if chain > 1
+                      else make_train_step(cfg, objective))
     refresh_step = make_bn_refresh_step(objective)
     host_train_loader = train_loader        # the BatchNorm refresh reads it
     if cfg.train.resident_feed:
-        train_loader = ResidentFeed(train_loader, chain=chain, place=device)
-        val_loader = ResidentFeed(val_loader, chain=1, place=device)
+        train_loader = ResidentFeed(train_loader, chain=chain, place=device,
+                                    shard=train_shard)
+        val_loader = ResidentFeed(val_loader, chain=1, place=device,
+                                  shard=eval_pad)
     scheduler = ReduceLROnPlateau(
         lr=cfg.optim.lr,
         factor=cfg.optim.plateau_factor,
@@ -188,11 +231,13 @@ def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
             with open(best_json) as f:
                 best_validation_loss = json.load(f)["loss"]
 
-    with open(osp.join(ckpt_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if primary:
+        with open(osp.join(ckpt_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
 
-    loss_log = open(osp.join(ckpt_dir, "loss.log"),
-                    "a" if restore_file else "w")
+    loss_log = (open(osp.join(ckpt_dir, "loss.log"),
+                     "a" if restore_file else "w")
+                if primary else open(os.devnull, "w"))
     if not restore_file:
         loss_log.write("# loss log for training starting at "
                        + time.strftime("%Y-%m-%d %H:%M:%S", time.gmtime())
@@ -209,7 +254,8 @@ def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
 
         train_loss = train_one_epoch(model, optimizer, train_step,
                                      train_loader, epoch, device,
-                                     verbose=verbose, chain=chain)
+                                     verbose=verbose, chain=chain,
+                                     shard=train_shard)
 
         if cfg.train.bn_refresh_batches > 0:
             # precise-BN: re-estimate the running statistics under the
@@ -220,11 +266,13 @@ def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
                 refresh_step(model, to_device(rb, device))
         set_learning_rate(optimizer, scheduler.step(train_loss))  # train.py:58
 
-        save_checkpoint(model, optimizer, scheduler, epoch, is_best=False,
-                        checkpoint_dir=ckpt_dir)
+        if primary:
+            save_checkpoint(model, optimizer, scheduler, epoch,
+                            is_best=False, checkpoint_dir=ckpt_dir)
 
         test_metrics, resolutions = evaluate(model, eval_step, val_loader,
-                                             cfg, device, verbose=verbose)
+                                             cfg, device, verbose=verbose,
+                                             pad=eval_pad)
         validation_loss = test_metrics["loss"]
         loss_log.write(f"{epoch},{train_loss:.2f},{validation_loss:.2f}\n")
         loss_log.flush()
@@ -233,15 +281,19 @@ def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
             if verbose:
                 print("Found new best loss!")
             best_validation_loss = validation_loss
-            save_checkpoint(model, optimizer, scheduler, epoch, is_best=True,
-                            checkpoint_dir=ckpt_dir)
-            artifacts.save_dict_to_json(
-                test_metrics, osp.join(ckpt_dir, "metrics_val_best.json"))
-            artifacts.save(resolutions, osp.join(ckpt_dir, "best.resolutions"))
+            if primary:
+                save_checkpoint(model, optimizer, scheduler, epoch,
+                                is_best=True, checkpoint_dir=ckpt_dir)
+                artifacts.save_dict_to_json(
+                    test_metrics, osp.join(ckpt_dir, "metrics_val_best.json"))
+                artifacts.save(resolutions,
+                               osp.join(ckpt_dir, "best.resolutions"))
 
-        artifacts.save_dict_to_json(
-            test_metrics, osp.join(ckpt_dir, "metrics_val_last.json"))
-        artifacts.save(resolutions, osp.join(ckpt_dir, "last.resolutions"))
+        if primary:
+            artifacts.save_dict_to_json(
+                test_metrics, osp.join(ckpt_dir, "metrics_val_last.json"))
+            artifacts.save(resolutions,
+                           osp.join(ckpt_dir, "last.resolutions"))
 
     loss_log.close()
     if verbose:

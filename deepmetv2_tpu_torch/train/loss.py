@@ -21,14 +21,28 @@ def weighted_met(weights: torch.Tensor, batch: EventBatch
     return metx, mety
 
 
+def met_per_event(metx: torch.Tensor, mety: torch.Tensor,
+                  batch: EventBatch) -> torch.Tensor:
+    """(METx + genMETx)² + (METy + genMETy)² per event, from the sums of
+    ``weighted_met``."""
+    return (metx + batch.y[:, 0]) ** 2 + (mety + batch.y[:, 1]) ** 2
+
+
+def real_event_total(per_event: torch.Tensor, batch: EventBatch
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Σ of ``per_event`` over real events, their count): events with
+    ``num_valid == 0`` (batch padding) are left out."""
+    ev = batch.num_valid > 0
+    return (torch.where(ev, per_event, torch.zeros_like(per_event)).sum(),
+            ev.sum())
+
+
 def loss_fn(weights: torch.Tensor, batch: EventBatch) -> torch.Tensor:
     """0.5 · mean over real events of (METx + genMETx)² + (METy + genMETy)²;
     events with ``num_valid == 0`` (batch padding) are left out."""
-    metx, mety = weighted_met(weights, batch)
-    per_event = (metx + batch.y[:, 0]) ** 2 + (mety + batch.y[:, 1]) ** 2
-    ev = batch.num_valid > 0
-    total = torch.where(ev, per_event, torch.zeros_like(per_event)).sum()
-    return 0.5 * total / torch.clamp(ev.sum(), min=1)
+    total, n = real_event_total(met_per_event(*weighted_met(weights, batch),
+                                              batch), batch)
+    return 0.5 * total / torch.clamp(n, min=1)
 
 
 def drn_met_vector(pred: torch.Tensor, head: str = "polar") -> torch.Tensor:
@@ -44,11 +58,15 @@ def drn_loss_fn(pred: torch.Tensor, batch: EventBatch,
                 head: str = "polar") -> torch.Tensor:
     """0.5 · mean over real events of ‖v_pred − genMET‖² for the DRN head
     (events with ``num_valid == 0`` are left out)."""
+    total, n = real_event_total(drn_per_event(pred, batch, head), batch)
+    return 0.5 * total / torch.clamp(n, min=1)
+
+
+def drn_per_event(pred: torch.Tensor, batch: EventBatch,
+                  head: str = "polar") -> torch.Tensor:
+    """‖v_pred − genMET‖² per event."""
     v = drn_met_vector(pred, head)
-    per_event = (v[:, 0] - batch.y[:, 0]) ** 2 + (v[:, 1] - batch.y[:, 1]) ** 2
-    ev = batch.num_valid > 0
-    total = torch.where(ev, per_event, torch.zeros_like(per_event)).sum()
-    return 0.5 * total / torch.clamp(ev.sum(), min=1)
+    return (v[:, 0] - batch.y[:, 0]) ** 2 + (v[:, 1] - batch.y[:, 1]) ** 2
 
 
 def u_perp_par_loss(weights: torch.Tensor, batch: EventBatch) -> torch.Tensor:

@@ -58,17 +58,20 @@ class ResidentFeed:
       chain: stack up to this many consecutive same-shape batches per
         chain (1: single batches, no stacking).
       place: the device the stacks are staged on (default CUDA).
+      shard: a host batch (or stack) → what this rank stages of it, on a
+        mesh (its own rows, parallel/mesh.py:shard_batch, or the batch
+        padded for evaluation); None stages the whole batch.
       max_bytes: device memory budget of the staged epoch; a larger epoch
         streams from the host instead, with a warning.
 
     ``meta`` (one list for the feed's life) holds one host-side ``(steps,
-    real nodes)`` per stack, filled when the epoch is staged (or, when
-    streaming, as it streams): progress accounting never reads staged
-    tensors back.
+    real nodes)`` per stack (of the whole batch, before ``shard``), filled
+    when the epoch is staged (or, when streaming, as it streams): progress
+    accounting never reads staged tensors back.
     """
 
     def __init__(self, loader, chain: int = 1, place=None,
-                 max_bytes: int = 4 << 30):
+                 max_bytes: int = 4 << 30, shard=None):
         if not getattr(loader, "replays_same_batches", False):
             raise ValueError(
                 f"ResidentFeed: {type(loader).__name__} does not promise to "
@@ -79,6 +82,7 @@ class ResidentFeed:
         self._chain = max(1, int(chain))
         self._place = place if place is not None else "cuda"
         self._max_bytes = max_bytes
+        self._shard = shard or (lambda b: b)
         self._stacks: Optional[List[EventBatch]] = None
         self._streaming = False
         self.meta: List[Tuple[int, int]] = []
@@ -89,6 +93,8 @@ class ResidentFeed:
     def _stage(self) -> None:
         stacks, meta, total = [], [], 0
         for s in self._host_stacks():
+            meta.append(stack_meta(s, self._chain > 1))
+            s = self._shard(s)
             total += _nbytes(s)
             if total > self._max_bytes:
                 warnings.warn(
@@ -96,7 +102,6 @@ class ResidentFeed:
                     f"({total} > {self._max_bytes}); streaming from the host")
                 self._streaming = True
                 return
-            meta.append(stack_meta(s, self._chain > 1))
             stacks.append(to_device(s, self._place))
         self._stacks = stacks
         self.meta[:] = meta
@@ -107,7 +112,8 @@ class ResidentFeed:
         if self._streaming:
             self.meta.clear()
             yield from prefetch_to_device(
-                recording(self._host_stacks(), self.meta, self._chain > 1),
+                map(self._shard, recording(self._host_stacks(), self.meta,
+                                           self._chain > 1)),
                 place=self._place)
             return
         yield from self._stacks

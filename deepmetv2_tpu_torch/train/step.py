@@ -24,7 +24,8 @@ from deepmetv2_tpu_torch.models.graph_met import GraphMET, net_apply
 from deepmetv2_tpu_torch.ops.graph import radius_graph
 from deepmetv2_tpu_torch.ops.window import WindowGraph
 from deepmetv2_tpu_torch.train.loss import (drn_loss_fn, drn_met_vector,
-                                            loss_fn)
+                                            loss_fn, met_per_event,
+                                            real_event_total, weighted_met)
 from deepmetv2_tpu_torch.train.metrics import _neg_weighted_met
 
 
@@ -186,24 +187,40 @@ def make_bn_refresh_step(objective: Callable) -> Callable:
     return refresh
 
 
-def eval_step_body(cfg: Config) -> Callable:
-    """``(model, batch) -> (v_met [B, 2], loss, weights)`` with the
-    weights in the CALLER's candidate order and ``v_met = −Σ wᵢpᵢ``.  In
-    window mode, unless the batch is presorted, the forward runs on the
-    eta-sorted batch and the weights come back through the inverse
-    permutation; a presorted batch, and every batch in neighbor_list mode,
-    runs in its own order."""
+def eval_step_terms(cfg: Config) -> Callable:
+    """``(model, batch) -> (v_met [B, 2], loss total, real events,
+    weights)``: ``loss_fn`` is ``0.5 · total / max(events, 1)``.  The
+    weights come back in the CALLER's candidate order and ``v_met = −Σ
+    wᵢpᵢ``.  In window mode, unless the batch is presorted, the forward
+    runs on the eta-sorted batch (the loss's sums too) and the weights come
+    back through the inverse permutation; a presorted batch, and every
+    batch in neighbor_list mode, runs in its own order."""
 
-    def eval_step(model: GraphMET, batch: EventBatch):
+    def terms(model: GraphMET, batch: EventBatch):
         if cfg.graph.mode != "window" or cfg.graph.presorted:
             batch, graph = build_graph(batch, cfg)
             w = net_apply(model, batch, graph)
-            return _neg_weighted_met(w, batch), loss_fn(w, batch), w
+            return (_neg_weighted_met(w, batch),
+                    *real_event_total(met_per_event(
+                        *weighted_met(w, batch), batch), batch), w)
         batch_s, perm = sort_by_eta(batch)
         w = net_apply(model, batch_s, window_graph(batch_s, cfg))
-        loss = loss_fn(w, batch_s)
+        total, n = real_event_total(met_per_event(
+            *weighted_met(w, batch_s), batch_s), batch_s)
         w = torch.gather(w, 1, torch.argsort(perm, dim=1))
-        return _neg_weighted_met(w, batch), loss, w
+        return _neg_weighted_met(w, batch), total, n, w
+
+    return terms
+
+
+def eval_step_body(cfg: Config) -> Callable:
+    """``(model, batch) -> (v_met [B, 2], loss, weights)`` of
+    ``eval_step_terms``, the loss ``loss_fn``'s."""
+    terms = eval_step_terms(cfg)
+
+    def eval_step(model: GraphMET, batch: EventBatch):
+        v_met, total, n, w = terms(model, batch)
+        return v_met, 0.5 * total / torch.clamp(n, min=1), w
 
     return eval_step
 

@@ -1,10 +1,11 @@
 """Artifact persistence: lz4-frame pickles (reference utils.py:32-57).
 
-``save`` writes plain ``pickle`` inside an lz4 frame, readable by the JAX
-package's ``artifacts.load``.  ``load`` reads artifacts of either package,
-including JAX checkpoints: their pickles name classes of the JAX package
-and of optax, which are mapped here to plain named tuples instead of being
-imported.
+``save`` writes a pickle of protocol 5 inside an lz4 frame: the bytes the
+JAX package's ``artifacts.save`` writes (its cloudpickle defaults to
+protocol 5 and pickles importable objects as ``pickle`` does).  ``load``
+reads artifacts of either package, including JAX checkpoints: their
+pickles name classes of the JAX package and of optax, which are mapped
+here to plain named tuples instead of being imported.
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ def save(obj: Any, filename: str) -> None:
     """Save a picklable object as an lz4-frame pickle (reference
     utils.py:40-46)."""
     with open(filename, "wb") as fout:
-        fout.write(lz4f.compress_frame(pickle.dumps(obj)))
+        fout.write(lz4f.compress_frame(pickle.dumps(obj, protocol=5)))
 
 
 def save_dict_to_json(d: Dict[str, Any], json_path: str) -> None:

@@ -1,14 +1,20 @@
-"""LZ4 frame codec in pure Python (the JAX package's ``utils/lz4f.py``).
+"""LZ4 frame codec (the JAX package's ``utils/lz4f.py``).
 
 Artifacts (``.ckpt``, ``.resolutions``) are lz4-frame-wrapped pickles
-(reference utils.py:32-46).  Reading handles compressed and uncompressed
-blocks; writing stores spec-valid uncompressed blocks, which any lz4
-reader (the JAX package's included) accepts.
+(reference utils.py:32-46).  The frame layer is Python; each block goes
+through the native library (utils/native.py) when it is available: the
+writer compresses a block where that makes it smaller and stores it
+otherwise, the reader decodes with the library and falls back to the
+Python decoder.  Without the library every block is stored, as the JAX
+package's writer does then, so the frame is that package's bytes either
+way.
 """
 
 from __future__ import annotations
 
 import struct
+
+from deepmetv2_tpu_torch.utils import native
 
 MAGIC = 0x184D2204
 
@@ -55,7 +61,22 @@ def xxh32(data: bytes, seed: int = 0) -> int:
 
 
 def decompress_block(src: bytes, max_size: int = 1 << 24) -> bytes:
-    """LZ4 block decompression (token | literals | offset | match)."""
+    """LZ4 block decompression: the native decoder with a growing buffer
+    (as the JAX package's), else, or where it cannot decode, the Python
+    one, which raises a precise error on a corrupt block."""
+    if native.available():
+        cap = max(4 * len(src), 1 << 16)
+        while cap <= max_size * 4:
+            out = native.lz4_decompress_block(src, cap)
+            if out is not None:
+                return out
+            cap *= 4
+    return _decompress_block_py(src, max_size)
+
+
+def _decompress_block_py(src: bytes, max_size: int = 1 << 24) -> bytes:
+    """LZ4 block decompression in Python (token | literals | offset |
+    match)."""
     dst = bytearray()
     i = 0
     n = len(src)
@@ -97,7 +118,8 @@ def decompress_block(src: bytes, max_size: int = 1 << 24) -> bytes:
 
 
 def compress_frame(data: bytes, block_size: int = 4 << 20) -> bytes:
-    """A spec-valid LZ4 frame of uncompressed blocks."""
+    """A spec-valid LZ4 frame: each block compressed by the native library
+    where that makes it smaller, else stored uncompressed."""
     out = bytearray()
     out += struct.pack("<I", MAGIC)
     flg = (1 << 6) | (1 << 5)           # version 01, block-independent
@@ -106,8 +128,11 @@ def compress_frame(data: bytes, block_size: int = 4 << 20) -> bytes:
     out += desc + bytes([(xxh32(desc) >> 8) & 0xFF])
     for i in range(0, len(data), block_size) or [0]:
         chunk = data[i:i + block_size]
-        out += struct.pack("<I", len(chunk) | 0x80000000)
-        out += chunk
+        comp = native.lz4_compress_block(chunk)
+        if comp is not None and len(comp) < len(chunk):
+            out += struct.pack("<I", len(comp)) + comp
+        else:
+            out += struct.pack("<I", len(chunk) | 0x80000000) + chunk
     out += struct.pack("<I", 0)          # end mark
     return bytes(out)
 

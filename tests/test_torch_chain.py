@@ -217,8 +217,11 @@ def test_drn_chained_matches_jax():
 
 
 def test_chained_step_refuses_a_mesh_and_unknown_family():
+    """A mesh chain is ported (tests/test_torch_mesh.py) except the
+    node-sharded DRN's (ROADMAP A8c)."""
     with pytest.raises(NotImplementedError, match="not ported"):
-        tchain.make_chained_train_step(_graphmet_cfg(), mesh=object())
+        tchain.make_chained_train_step(_graphmet_cfg(), "drn", mesh=object(),
+                                       shard_nodes=True)
     with pytest.raises(ValueError, match="unknown model family"):
         tchain.make_chained_train_step(_graphmet_cfg(), "gnn")
 

@@ -209,9 +209,10 @@ def test_fit_reads_the_feed_from_the_config(tmp_path):
     seen = []
     real = tres.ResidentFeed.__init__
 
-    def recording(self, loader, chain=1, place=None, max_bytes=4 << 30):
+    def recording(self, loader, chain=1, place=None, max_bytes=4 << 30,
+                  **kw):
         seen.append(chain)
-        real(self, loader, chain, place, max_bytes)
+        real(self, loader, chain, place, max_bytes, **kw)
 
     with mock.patch.object(tres.ResidentFeed, "__init__", recording):
         _fit(tmp_path, "a", loaders, (64,), 3, True, epochs=1)

@@ -263,7 +263,7 @@ def test_u_perp_par_loss_matches_jax(small):
 
 
 @pytest.mark.parametrize("flags", [["--model", "drn", "--mesh", "1x2"],
-                                   ["--mesh", "2"], ["--ring_knn"],
+                                   ["--ring_knn"],
                                    ["--model", "drn", "--ring_knn"]])
 def test_train_cli_unported_flags_exit_nonzero(flags, tmp_path):
     from deepmetv2_tpu_torch.cli import train as train_cli
@@ -273,6 +273,18 @@ def test_train_cli_unported_flags_exit_nonzero(flags, tmp_path):
                         "--device", "cpu"] + flags)
     assert exc.value.code not in (0, None)
     assert "not ported yet" in str(exc.value.code)
+
+
+def test_train_cli_mesh_flag_accepted(tmp_path):
+    """``--mesh 2`` is ported: the CLI spawns its two ranks, which set up
+    the mesh and write the run's config.json (no epoch runs, ``--epochs
+    0``; tests/test_torch_mesh.py trains on meshes)."""
+    from deepmetv2_tpu_torch.cli import train as train_cli
+
+    assert train_cli.main(["--synthetic", "8", "--batch_size", "4",
+                           "--epochs", "0", "--ckpts", str(tmp_path),
+                           "--device", "cpu", "--mesh", "2"]) == 0
+    assert osp.exists(osp.join(str(tmp_path), "config.json"))
 
 
 @pytest.mark.parametrize("model", ["graphmet", "drn"])
