@@ -76,10 +76,31 @@ Phases, each printing one line:
      gradient within GRAD_ATOL of the largest; mesh_evaluate (--mesh 2),
      the evaluate CLI's pass within LOSS_RTOL of GOLDEN_LOSS, and the DRN's
      (composed, the JAX mesh path) held by drn_golden_rule to
-     GOLDEN_DRN_COMPOSED_*; then mesh_world1 (--mesh 1 on NCCL in this
+     GOLDEN_DRN_COMPOSED_*; mesh_drn_ep, the node-sharded DRN on the same
+     two ranks (--model drn --mesh 1x2, ckpts_syn_drn at full width), one
+     line per sub-phase: knn, both distributed kNN builds at B=8, N=2048,
+     H=64 against the single-device knn_graph (sets equal on rows without
+     a tie at the k-th place, the builds bitwise on rows without a tie,
+     the ties counted), evaluate, the eval forward over the 400
+     validation events held by drn_golden_rule to GOLDEN_DRN_COMPOSED_*
+     (round-2 digests in the compacted labelling), ring, its first
+     batches again with the ring build (MET bitwise where the graphs
+     agree), train, 10 steps resumed from ckpts_syn_drn/best.ckpt at batch
+     16 against the port's single-device composed steps (step 0 within
+     DRN_EP_STEP0_RTOL where the graphs agree, then DRN_TRAIN_LATE_RTOL;
+     the ranks' losses equal; step times by utils/profiling.StepProfiler,
+     the last step traced by utils/profiling.trace), train_replay, every
+     step's loss and model within DRN_EP_REPLAY_RTOL of the single-device
+     step on the sharded step's own graphs, launches, the fused conv's
+     kernels (edge_mlp_fwd, edge_mlp_bwd) two per forward and no graph
+     kernel on any of these; then mesh_world1 (--mesh 1 on NCCL in this
      process), 3 steps bitwise the single-device step's; mesh_cli, the train
      CLI with --mesh 1x2 for 1 epoch (it spawns its ranks), each rank's
-     exact launches, best.ckpt re-evaluated within REEVAL_RTOL;
+     exact launches, best.ckpt re-evaluated within REEVAL_RTOL; and
+     mesh_drn_ep's cli, the train CLI with --model drn --mesh 1x2
+     --ring_knn for 1 epoch, the fused conv's kernels alone launched,
+     best.ckpt re-evaluated within REEVAL_RTOL on the path the mesh
+     evaluates with;
   9. kernel_knn: the DRN's graph kernels knn_kth and knn_extract against
      their plain versions, bitwise (t, sq, idx, d2v, rel), on (a) the
      DRN's own round-1 features of an evaluation batch (B=40, N=2048,
@@ -675,7 +696,9 @@ def kernel_bwd_phase(device, cases, edge_args):
 
 def step_profile(step, reps: int = 5, cpu: bool = True):
     """(device ms per step, kernels per step, top kernels) of ``step``
-    under torch.profiler (``cpu=False``: the device's activity only)."""
+    under torch.profiler (``cpu=False``: the device's activity only).  No
+    trace file is written (utils/profiling.trace writes one, and its
+    export of a profiled feed epoch lengthens the run)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -684,6 +707,12 @@ def step_profile(step, reps: int = 5, cpu: bool = True):
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
+    return kernel_times(prof, reps)
+
+
+def kernel_times(prof, reps: int = 1):
+    """(device ms per step, kernels per step, top kernels) of a finished
+    torch.profiler run over ``reps`` steps."""
     kernels = []
     for e in prof.key_averages():
         # a user annotation (e.g. "Optimizer.step#AdamW.step") spans kernels
@@ -3066,11 +3095,349 @@ def mesh_drn_eval_rank(device):
                 launches={k: fn.launches for k, fn in counters.items()})
 
 
+# The node-sharded DRN (parallel/dyn.py) on the same two ranks, at the
+# DRN's full width (ckpts_syn_drn: H=64, k=16, cap 32, two rounds, the 2048
+# bucket), layout 1x2.  The distributed kNN builds and the single-device
+# knn_graph round d² differently (f32 rounds |q|² + |s|² − 2q·s to a few
+# 1e-7 of |q|² + |s|², at most about 4e-6 at H=64), so a row whose k-th and
+# (k+1)-th candidates' squared distances (in f64) lie within DRN_EP_TIE of
+# |q|² + |s|² (the larger |s|² of the two) keeps either neighbour: such rows
+# are counted and left out of the set comparison.  The two builds round
+# every pair alike, so they are held to each other bitwise on every row
+# without an exact tie of their own d² among its first k+1 candidates (on
+# one the ring keeps the neighbour it visited first, ROADMAP "Known
+# divergences"); those rows are counted.
+DRN_EP_TIE = 1e-5
+DRN_EP_STEP0_RTOL = 1e-5   # step 0 against the composed step, same graphs
+# every step against the single-device step on the same graphs: the loss
+# relatively, each tensor relative to its largest |value| (drn_replay_steps)
+DRN_EP_REPLAY_RTOL = 1e-5
+DRN_EP_RING_BATCHES = 5    # validation batches run again with the ring
+DRN_EP_CLI_EVENTS = 40     # the --mesh 1x2 --ring_knn CLI run's events
+
+
+def compacted_rounds(rounds):
+    """Per-round decisions ``(mask, idx, slot mask, cluster, partner)``
+    (numpy) with each node renumbered by its rank among the round's real
+    rows: the labelling of a path that compacts between rounds
+    (models/drn.py:_compact_nodes keeps their order), so the node-sharded
+    path, which does not, gives the composed path's digests."""
+    import numpy as np
+
+    out = []
+    for mask, idx, nmask, cluster, partner in rounds:
+        rank = np.cumsum(mask, axis=1) - 1
+
+        def lab(a):
+            flat = a.reshape(a.shape[0], -1).astype(np.int64)
+            return np.take_along_axis(rank, flat, 1).reshape(a.shape)
+
+        out.append((mask, np.where(nmask, lab(idx), 0), nmask, lab(cluster),
+                    lab(partner)))
+    return out
+
+
+def knn_tie_rows(h, mask, k: int, n_node: int):
+    """``(near, exact)`` [B, N] bool on the real rows of ``h``: the k-th
+    and (k+1)-th valid candidates (self excluded) within DRN_EP_TIE of
+    each other (squared distances in f64, the tolerance relative to |q|² +
+    |s|²); two of the first k+1 candidates at an equal d² of the
+    distributed builds (their own arithmetic over ``n_node`` shards,
+    parallel/knn.py:_block_d2)."""
+    import torch
+    from deepmetv2_tpu_torch.parallel.knn import _block_d2
+
+    hd = h.double()
+    sq = (hd * hd).sum(-1)
+    d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * hd @ hd.transpose(1, 2)
+    n = h.shape[1]
+    ok = (mask[:, :, None] & mask[:, None, :]
+          & ~torch.eye(n, dtype=torch.bool, device=h.device)[None])
+    vals, order = torch.sort(d2.masked_fill(~ok, float("inf")), dim=-1)
+    vals, order = vals[..., :k + 1], order[..., :k + 1]
+    s_sq = torch.gather(sq[:, None, :].expand(-1, n, -1), 2, order)
+    scale = sq + torch.maximum(s_sq[..., k], s_sq[..., k - 1])
+    near = vals[..., k] - vals[..., k - 1] <= DRN_EP_TIE * scale  # nan: no
+    n_loc, exact = n // n_node, []
+    for q0 in range(0, n, n_loc):
+        q, qm = h[:, q0:q0 + n_loc].contiguous(), mask[:, q0:q0 + n_loc]
+        own = torch.cat([_block_d2(q, (q * q).sum(-1), qm, q0,
+                                   h[:, s0:s0 + n_loc].contiguous(),
+                                   mask[:, s0:s0 + n_loc], s0, False)
+                         for s0 in range(0, n, n_loc)], dim=-1)
+        v = torch.sort(own, dim=-1).values[..., :k + 1]
+        exact.append(((v[..., 1:] == v[..., :-1])
+                      & torch.isfinite(v[..., 1:])).any(-1))
+    return near & mask, torch.cat(exact, dim=1) & mask
+
+
+def drn_noise_path(path) -> bool:
+    """A DRN tensor whose exact gradient is about 0 because a masked
+    BatchNorm follows it: each round's last edge-MLP bias, and the
+    BatchNorm running mean that tracks it.  AdamW turns their f32 rounding
+    noise, summed in another order on a mesh, into steps of up to lr of
+    either sign (tests/test_torch_mesh.py:noise_path)."""
+    return path[1] == "convs" and (path[3:] == (0,)
+                                   or path[3:] == ("mlp", "lin1", "b"))
+
+
+def drn_replay_steps(resumed, tcfg, hosts, replay, losses, states, device):
+    """The node-sharded train steps' single-device reference on their own
+    graphs: the resumed model stepped by the single-device train step on
+    each whole batch, each round's kNN lists and matching replayed from
+    the sharded step's (``replay``: per step, the gathered lists and
+    ``(cluster, partner)`` of each round), the conv the same fused
+    kernels.  Per step: the loss's relative error, and the worst tensor's
+    error over its allowance (DRN_EP_REPLAY_RTOL of the tensor's largest
+    |value|, at least 1; drn_noise_path tensors 2·lr per step), against
+    the sharded step's loss and model (``states``)."""
+    from unittest import mock
+
+    import torch
+    from deepmetv2_tpu_torch.data import to_device
+    from deepmetv2_tpu_torch.models import drn as tdrn
+    from deepmetv2_tpu_torch.train.loss import drn_loss_fn
+    from deepmetv2_tpu_torch.train.step import make_train_step
+
+    model, opt = resumed()
+    lr = float(opt.param_groups[0]["lr"])
+    rel, worst = [], []
+    for i, (host, (lists, matches)) in enumerate(zip(hosts, replay)):
+        knn, pairs = iter(lists), iter(matches)
+        step = make_train_step(tcfg, lambda m, b: drn_loss_fn(
+            tdrn.drn_net_apply(m, b, knn_fn=lambda h, mask: next(knn)), b,
+            tcfg.drn.head))
+        with mock.patch.object(tdrn, "handshake_matching",
+                               lambda *a, **kw: next(pairs)):
+            loss = float(step(model, opt, to_device(host, device)))
+        rel.append(abs(loss - losses[i]) / abs(loss))
+        errs = []
+        for path, ref in model.jax_layout():
+            ref = ref.detach().double()
+            got = states[i][path].double()
+            allow = (2 * lr * (i + 1) if drn_noise_path(path) else
+                     DRN_EP_REPLAY_RTOL * max(float(ref.abs().max()), 1.0))
+            errs.append((float((got - ref).abs().max()) / allow,
+                         "/".join(map(str, path))))
+        worst.append(max(errs))
+    return dict(loss_rel_err=rel, worst_over_allowance=[w[0] for w in worst],
+                worst_tensor=[w[1] for w in worst], lr=lr)
+
+
+def mesh_drn_ep_rank(device):
+    """The node-sharded DRN on the 1x2 mesh, one rank's part:
+    (a) both kNN builds on the round-1 features of the first full-width
+    validation batch (B=8, N=2048, H=64), gathered, and on rank 0 against
+    the single-device knn_graph; (b) the sharded forward in eval mode over
+    the 400 validation events at batch 8 (MET, losses, per-round graph
+    digests in the compacted labelling), then the first
+    DRN_EP_RING_BATCHES batches with the ring build; (c) 10 train steps
+    resumed from ckpts_syn_drn/best.ckpt at batch 16 through the mesh
+    train step (with their graph digests, a StepProfiler summary and the
+    last step under utils/profiling.trace), and on rank 0 the port's
+    single-device steps on the same batches, on the composed graph build
+    with the conv the sharded path takes (the fused conv), and on the
+    sharded steps' own graphs (drn_replay_steps); (d) the DRN kernels'
+    launches over (b) and (c)."""
+    import itertools
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from deepmetv2_tpu_torch.data import fetch_dataloader, to_device
+    from deepmetv2_tpu_torch.models import drn as tdrn
+    from deepmetv2_tpu_torch.data.batching import Neighborhood
+    from deepmetv2_tpu_torch.ops.graph import knn_graph
+    from deepmetv2_tpu_torch.parallel import dyn as tdyn
+    from deepmetv2_tpu_torch.parallel.dyn import (NodeShards,
+                                                  drn_net_apply_sharded)
+    from deepmetv2_tpu_torch.parallel.knn import (knn_graph_sharded,
+                                                  knn_graph_sharded_ring)
+    from deepmetv2_tpu_torch.parallel.mesh import Mesh, shard_batch
+    from deepmetv2_tpu_torch.train.chain import mesh_train_step
+    from deepmetv2_tpu_torch.train.checkpoint import restore_checkpoint
+    from deepmetv2_tpu_torch.train.loss import drn_loss_fn, drn_met_vector
+    from deepmetv2_tpu_torch.train.schedule import ReduceLROnPlateau
+    from deepmetv2_tpu_torch.train.step import (make_optimizer,
+                                                make_train_step)
+    from deepmetv2_tpu_torch.utils import profiling
+
+    mesh = Mesh(1, 2, device=device)
+    counters = drn_train_counters()
+    model, cfg = drn_model(device)
+    head, k = cfg.drn.head, cfg.drn.k
+    ld = drn_val_loader(cfg, 8)
+    out = {}
+
+    # (a) the kNN builds
+    batch = to_device(next(b for b in ld if b.x_cont.shape[1] == DRN_N),
+                      device)
+    h = drn_features(model, batch)
+    nodes = NodeShards(mesh)
+    h_loc, m_loc = nodes.local(h).contiguous(), nodes.local(batch.mask)
+    built, secs = {}, {}
+    for name, build in (("all_gather", knn_graph_sharded),
+                        ("ring", knn_graph_sharded_ring)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        nb = build(h_loc, m_loc.contiguous(), k=k, mesh=mesh)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        built[name] = [torch.cat(mesh.all_gather(a, mesh.node_group), 1)
+                       for a in nb]
+    knn = dict(seconds=secs)
+    if mesh.rank == 0:
+        ref = knn_graph(h, batch.mask, k=k)
+        near, exact = knn_tie_rows(h, batch.mask, k, mesh.n_node)
+        big = torch.iinfo(torch.int32).max
+
+        def sets(idx, m):
+            return torch.sort(torch.where(m, idx, big), dim=-1).values
+
+        ag, ring = built["all_gather"], built["ring"]
+        clean, clear = batch.mask & ~near, batch.mask & ~exact
+        knn.update(
+            shape=list(h.shape), k=k, real_rows=int(batch.mask.sum()),
+            near_tie_rows_at_k=int(near.sum()),
+            exact_tie_rows=int(exact.sum()),
+            masks_equal={n: bool(torch.equal(b[1], ref.mask))
+                         for n, b in built.items()},
+            set_rows_differ={n: int((sets(*b) != sets(*ref)).any(-1)[
+                clean].sum()) for n, b in built.items()},
+            ring_rows_differ=int(((ag[0] != ring[0]) | (ag[1] != ring[1]))
+                                 .any(-1)[clear].sum()),
+            ring_rows_differ_on_ties=int(((ag[0] != ring[0])
+                                          | (ag[1] != ring[1])).any(-1)[
+                exact].sum()))
+    out["knn"] = knn
+    del h, h_loc, built, batch
+
+    # (b) the sharded forward over the validation events
+    def sharded_pass(pairs, ring):
+        losses, mets, graphs = [], [], []
+        for host, ids in pairs:
+            b = shard_batch(to_device(host, device), mesh, True)
+            diag = {}
+            with torch.no_grad():
+                pred = drn_net_apply_sharded(model.eval(), b, mesh, ring,
+                                             diag)
+            losses.append(float(drn_loss_fn(pred, b, head)))
+            mets.append(drn_met_vector(pred, head)[:len(ids)].cpu().numpy())
+            graphs.append(drn_graph_digests(compacted_rounds(
+                [[t.cpu().numpy() for t in (m, nbr.idx, nbr.mask, c, p)]
+                 for m, nbr, c, p in diag["rounds"]]))[:len(ids)])
+        torch.cuda.synchronize()
+        return losses, np.concatenate(mets), np.concatenate(graphs)
+
+    pairs = list(zip(ld, ld._batches))
+    for fn in counters.values():        # (b) and (c) are the main path
+        fn.launches = 0
+    for key, part, ring in (("eval", pairs, False),
+                            ("ring", pairs[:DRN_EP_RING_BATCHES], True)):
+        t = time.perf_counter()
+        losses, met, graphs = sharded_pass(part, ring)
+        out[key] = dict(losses=losses, met=met, graphs=graphs,
+                        seconds=time.perf_counter() - t)
+
+    # (c) resumed train steps, node-sharded and (rank 0) single-device
+    tcfg = drn_train_config(cfg)
+    hosts = list(itertools.islice(iter(fetch_dataloader(
+        events=smoke_events(), batch_size=DRN_TRAIN_B)["train"]),
+        len(GOLDEN_DRN_TRAIN_LOSSES)))
+
+    def resumed():
+        m = tdrn.DRN(tcfg.drn, device=device)
+        opt = make_optimizer(tcfg, m)
+        restore_checkpoint(os.path.join(HERE, DRN_CKPTS, "best.ckpt"), m,
+                           opt, ReduceLROnPlateau(lr=tcfg.optim.lr))
+        return m, opt
+
+    def digests(rounds):
+        return drn_graph_digests(compacted_rounds(
+            [[t.cpu().numpy() for t in r] for r in rounds]))
+
+    m_ep, opt = resumed()
+    step = mesh_train_step(tcfg, "drn", mesh, shard_nodes=True)
+    match, build = tdrn.handshake_matching, tdyn.knn_graph_sharded
+    timer = profiling.StepProfiler()
+    trace_dir = os.path.join(HERE, "build", "smoke", "mesh",
+                             f"trace_rank{mesh.rank}")
+    losses, graphs, replay, states = [], [], [], []
+    t = time.perf_counter()
+    for i, host in enumerate(hosts):
+        rounds, lists = [], []
+
+        def recorded(w, nbr, mask, *a, **kw):
+            cluster, partner = match(w, nbr, mask, *a, **kw)
+            rounds.append((mask, nbr.idx, nbr.mask, cluster, partner))
+            return cluster, partner
+
+        def built(h, m, **kw):      # the round's kNN lists, whole axis
+            nb = build(h, m, **kw)
+            lists.append(Neighborhood(*(torch.cat(mesh.all_gather(
+                a, mesh.node_group), 1) for a in nb)))
+            return nb
+
+        b = to_device(shard_batch(host, mesh, True), device)
+        last = i == len(hosts) - 1
+        with mock.patch.object(tdrn, "handshake_matching", recorded), \
+                mock.patch.object(tdyn, "knn_graph_sharded", built), \
+                (profiling.trace(trace_dir) if last
+                 else contextlib.nullcontext()) as prof:
+            with profiling.annotate("node_sharded_drn_step"):
+                timer.step_start()
+                losses.append(float(step(m_ep, opt, b)))
+                torch.cuda.synchronize()
+            if not last:            # the traced step is profiled, not timed
+                timer.step_end()
+        graphs.append(digests(rounds))
+        replay.append((lists, [r[3:] for r in rounds]))
+        if mesh.rank == 0:
+            states.append({p: v.detach().clone()
+                           for p, v in m_ep.jax_layout()})
+    sec = time.perf_counter() - t
+    dev_ms, n_k, top = kernel_times(prof)
+    out["train"] = dict(losses=losses, graphs=np.stack(graphs), seconds=sec,
+                        step_times=timer.summary(),
+                        last_step_device_ms=dev_ms,
+                        last_step_kernels=n_k, last_step_top=top,
+                        trace=os.path.relpath(os.path.join(
+                            trace_dir, "trace.json"), HERE))
+    # (d) the DRN kernels on (b)-(c): the fused conv's, two per forward
+    out["launches"] = {name: fn.launches for name, fn in counters.items()}
+    steps = cfg.drn.pool_rounds * len(hosts)
+    out["want_launches"] = dict(edge_mlp_fwd=cfg.drn.pool_rounds * (
+        len(pairs) + DRN_EP_RING_BATCHES) + steps, edge_mlp_bwd=steps)
+    if mesh.rank == 0:
+        out["replay"] = drn_replay_steps(resumed, tcfg, hosts, replay,
+                                         losses, states, device)
+        m_s, opt_s = resumed()
+        single = make_train_step(tcfg, lambda mm, bb: drn_loss_fn(
+            tdrn.drn_net_apply(mm, bb, graph_force="composed"), bb, head))
+        cut = tdrn.cut_matching
+        s_losses, s_graphs = [], []
+        for host in hosts:
+            rounds = []
+
+            def recorded(g, hh, mask, *a, **kw):
+                cluster, partner = cut(g, hh, mask, *a, **kw)
+                rounds.append((mask, g.nbr.idx, g.nbr.mask, cluster,
+                               partner))
+                return cluster, partner
+
+            with mock.patch.object(tdrn, "cut_matching", recorded):
+                s_losses.append(float(single(m_s, opt_s,
+                                             to_device(host, device))))
+            s_graphs.append(digests(rounds))
+        out["single"] = dict(losses=s_losses, graphs=np.stack(s_graphs))
+    return out
+
+
 def mesh_rank_main(rank: int, store: str, out_dir: str) -> None:
     """A rank of the two-rank group (started by mesh_phases): gloo on the
     shared card, then the --mesh 2 and --mesh 1x2 train phases, the EP
-    kernel check and both families' data-parallel evaluation; its results
-    into ``out_dir``."""
+    kernel check, both families' data-parallel evaluation and the
+    node-sharded DRN (mesh_drn_ep_rank); its results into ``out_dir``."""
     import pickle
 
     import torch
@@ -3089,7 +3456,8 @@ def mesh_rank_main(rank: int, store: str, out_dir: str) -> None:
                    ep=mesh_train_rank(devices[rank], (1, 2)),
                    ep_kernel=mesh_window_rank(devices[rank]),
                    eval=mesh_eval_rank(devices[rank]),
-                   drn_eval=mesh_drn_eval_rank(devices[rank]))
+                   drn_eval=mesh_drn_eval_rank(devices[rank]),
+                   drn_ep=mesh_drn_ep_rank(devices[rank]))
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
@@ -3097,9 +3465,10 @@ def mesh_rank_main(rank: int, store: str, out_dir: str) -> None:
 
 
 def mesh_phases(work: str) -> dict:
-    """mesh_dp_train, mesh_ep_train, mesh_evaluate: two ranks on this card
-    (gloo, staged), spawned once for all three.  Returns the f32 window
-    launches of their main paths, summed over the ranks."""
+    """mesh_dp_train, mesh_ep_train, mesh_evaluate, mesh_drn_evaluate and
+    mesh_drn_ep: two ranks on this card (gloo, staged), spawned once for
+    all of them.  Returns the f32 window launches of their main paths and
+    the node-sharded DRN's fused-conv launches, summed over the ranks."""
     import pickle
     import tempfile
 
@@ -3192,7 +3561,189 @@ def mesh_phases(work: str) -> dict:
                     GOLDEN_DRN_COMPOSED_GRAPHS, mesh="--mesh 2",
                     golden_loss=GOLDEN_DRN_COMPOSED_LOSS,
                     seconds=[x["seconds"] for x in d])
-    return dict(fwd=fwd, bwd=bwd)
+    drn = mesh_drn_ep_report([x["drn_ep"] for x in ranks], ld, sec)
+    return dict(fwd=fwd, bwd=bwd, drn_fwd=drn["edge_mlp_fwd"],
+                drn_bwd=drn["edge_mlp_bwd"])
+
+
+def mesh_drn_ep_report(parts, ld, spawn_seconds: float) -> None:
+    """mesh_drn_ep: the lines of mesh_drn_ep_rank's sub-phases from both
+    ranks' ``parts``, and their checks: (a) each build's masks equal to
+    knn_graph's, its neighbour sets on every row without a near tie at the
+    k-th place, the two builds bitwise on every row without an exact tie
+    (knn_tie_rows); (b) the validation
+    pass by drn_golden_rule against the composed golden, both ranks' MET
+    bitwise equal, the ring's MET bitwise the all-gather pass's on every
+    event whose graphs agree; (c) the ranks' losses equal, step 0 within
+    DRN_EP_STEP0_RTOL of the composed single-device step where every
+    event's graphs agree, every step within DRN_TRAIN_LATE_RTOL of it, and
+    every step's loss and model within DRN_EP_REPLAY_RTOL of the
+    single-device step on the same graphs (drn_replay_steps); (d) each
+    rank's launches those of the fused conv, two per forward
+    (``want_launches``), and none of the graph kernels.  Returns the
+    fused conv's launches summed over the ranks."""
+    import numpy as np
+
+    secs = {key: [p[key]["seconds"] for p in parts]
+            for key in ("knn", "eval", "ring", "train")}
+    k = parts[0]["knn"]
+    say("mesh_drn_ep", sub="knn", mesh="1x2", card=CARD,
+        **{key: v for key, v in k.items() if key != "seconds"},
+        seconds_by_rank=secs["knn"])
+    if not all(k["masks_equal"].values()):
+        fail(f"node-sharded kNN: slot masks unlike knn_graph's "
+             f"{k['masks_equal']}")
+    if any(k["set_rows_differ"].values()):
+        fail(f"node-sharded kNN: neighbour sets unlike knn_graph's on rows "
+             f"without a tie at the k-th place: {k['set_rows_differ']}")
+    if k["ring_rows_differ"]:
+        fail(f"node-sharded kNN: the ring build differs from the all-gather "
+             f"build on {k['ring_rows_differ']} rows without a tie")
+
+    ev = [p["eval"] for p in parts]
+    if not (np.array_equal(ev[0]["met"], ev[1]["met"])
+            and ev[0]["losses"] == ev[1]["losses"]):
+        fail("node-sharded DRN evaluate: the ranks' outputs differ")
+    ring = parts[0]["ring"]
+    n = len(ring["met"])
+    same = (ring["graphs"] == ev[0]["graphs"][:n]).all(axis=1)
+    equal = (ring["met"] == ev[0]["met"][:n]).all(axis=1)
+    drn_golden_rule("mesh_drn_ep", ld, ev[0]["losses"], ev[0]["met"],
+                    ev[0]["graphs"], GOLDEN_DRN_COMPOSED_MET,
+                    GOLDEN_DRN_COMPOSED_GRAPHS, sub="evaluate", mesh="1x2",
+                    golden_loss=GOLDEN_DRN_COMPOSED_LOSS,
+                    seconds_by_rank=secs["eval"], card=CARD)
+    say("mesh_drn_ep", sub="ring", mesh="1x2", events=int(n),
+        events_with_the_all_gather_graphs=int(same.sum()),
+        met_bitwise_on_those=bool(equal[same].all()),
+        seconds_by_rank=secs["ring"], card=CARD)
+    if not equal[same].all():
+        fail("node-sharded DRN evaluate: the ring build's MET is not the "
+             "all-gather build's on events with the same graphs")
+
+    tr, single = [p["train"] for p in parts], parts[0]["single"]
+    agree = [bool(np.array_equal(a, b)) for a, b in
+             zip(tr[0]["graphs"], single["graphs"])]
+    rel = [abs(a - b) / abs(b) for a, b in zip(tr[0]["losses"],
+                                               single["losses"])]
+    say("mesh_drn_ep", sub="train", mesh="1x2", losses=tr[0]["losses"],
+        single_device_composed=single["losses"], rel_err=rel,
+        steps_with_the_same_graphs=[i for i, a in enumerate(agree) if a],
+        events_with_other_graphs=[int((a != b).any(-1).sum()) for a, b in
+                                  zip(tr[0]["graphs"], single["graphs"])],
+        step_times_by_rank=[t["step_times"] for t in tr],
+        last_step_device_ms_by_rank=[t["last_step_device_ms"] for t in tr],
+        last_step_kernels=tr[0]["last_step_kernels"],
+        last_step_top=tr[0]["last_step_top"], trace=tr[0]["trace"],
+        seconds_by_rank=secs["train"], spawn_seconds=spawn_seconds,
+        card=CARD)
+    rp = parts[0]["replay"]
+    say("mesh_drn_ep", sub="train_replay", mesh="1x2",
+        loss_rel_err=rp["loss_rel_err"],
+        worst_over_allowance=rp["worst_over_allowance"],
+        worst_tensor=rp["worst_tensor"], lr=rp["lr"],
+        rtol=DRN_EP_REPLAY_RTOL, card=CARD)
+    if tr[0]["losses"] != tr[1]["losses"]:
+        fail("node-sharded DRN train: the ranks report different losses")
+    for i, (r, w) in enumerate(zip(rp["loss_rel_err"],
+                                   rp["worst_over_allowance"])):
+        if not (r <= DRN_EP_REPLAY_RTOL and w <= 1.0):
+            fail(f"node-sharded DRN train step {i}: against the "
+                 f"single-device step on the same graphs the loss is {r} "
+                 f"off and {rp['worst_tensor'][i]} {w} times its allowance "
+                 f"(DRN_EP_REPLAY_RTOL {DRN_EP_REPLAY_RTOL})")
+    for i, r in enumerate(rel):
+        lim = DRN_EP_STEP0_RTOL if i == 0 and agree[0] else \
+            DRN_TRAIN_LATE_RTOL
+        if not r <= lim:
+            fail(f"node-sharded DRN train step {i}: loss "
+                 f"{tr[0]['losses'][i]} is {r} from the single-device "
+                 f"composed step's {single['losses'][i]}, not within {lim}")
+
+    launches = [p["launches"] for p in parts]
+    want = parts[0]["want_launches"]
+    say("mesh_drn_ep", sub="launches", mesh="1x2", launches_by_rank=launches,
+        want_by_rank=want, card=CARD)
+    for r, c in enumerate(launches):
+        if {k: v for k, v in c.items() if v} != want:
+            fail(f"node-sharded DRN: rank {r} launched {c}, want {want}")
+    return {k: sum(c[k] for c in launches) for k in want}
+
+
+def mesh_drn_cli_phase(device, work: str) -> None:
+    """mesh_drn_ep, sub-phase cli: the train CLI with --model drn --mesh
+    1x2 --ring_knn for 1 epoch on DRN_EP_CLI_EVENTS synthetic events, as a
+    user starts it (it spawns its 2 ranks, which share this card through
+    gloo): its mesh line, each rank's launches those of the fused conv
+    (the backward's as many as the forward's, no graph kernel), and
+    best.ckpt re-evaluated within REEVAL_RTOL by the single-device
+    evaluation of the path the mesh evaluates with (DRN_MESH_FORCES).
+    Returns the fused conv's launches summed over the ranks."""
+    import torch
+    from deepmetv2_tpu_torch.cli.common import load_run_config
+    from deepmetv2_tpu_torch.data import fetch_dataloader
+    from deepmetv2_tpu_torch.models.drn import DRN, drn_net_apply
+    from deepmetv2_tpu_torch.parallel.dp import DRN_MESH_FORCES
+    from deepmetv2_tpu_torch.train.checkpoint import load_checkpoint
+    from deepmetv2_tpu_torch.train.loop import evaluate
+    from deepmetv2_tpu_torch.train.loss import drn_loss_fn, drn_met_vector
+
+    ck = os.path.join(work, "mesh_drn_cli")
+    cmd = [sys.executable, "-m", "deepmetv2_tpu_torch.cli.train", "--model",
+           "drn", "--drn_head", "cartesian", "--synthetic",
+           str(DRN_EP_CLI_EVENTS), "--batch_size", "8", "--epochs", "1",
+           "--mesh", "1x2", "--ring_knn", "--device", device.type,
+           "--ckpts", ck]
+    t = time.perf_counter()
+    r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                       timeout=600)
+    sec = time.perf_counter() - t
+    if r.returncode != 0:
+        fail(f"train CLI --model drn --mesh 1x2 --ring_knn exited "
+             f"{r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    lines = r.stdout.splitlines()
+    counts = json.loads([ln for ln in lines if ln.startswith(
+        "launches by rank:")][0].split(":", 1)[1])
+    with open(os.path.join(ck, "metrics_val_best.json")) as f:
+        best = json.load(f)["loss"]
+    cfg = load_run_config(ck)
+    payload = load_checkpoint(os.path.join(ck, "best.ckpt"))
+    model = DRN(cfg.drn, device=device).params_from_jax(
+        payload["params"], payload["bn_state"])
+    head = cfg.drn.head
+
+    @torch.no_grad()
+    def step(m, b):
+        pred = drn_net_apply(m.eval(), b, **DRN_MESH_FORCES)
+        return drn_met_vector(pred, head), drn_loss_fn(pred, b, head), None
+
+    ld = fetch_dataloader(events=smoke_events(DRN_EP_CLI_EVENTS),
+                          batch_size=8, buckets=cfg.data.node_buckets)
+    got = evaluate(model, step, ld["test"], cfg, device,
+                   verbose=False)[0]["loss"]
+    rel = abs(got - best) / abs(best)
+    say("mesh_drn_ep", sub="cli", argv=cmd[3:], seconds=sec,
+        launches_by_rank=counts, epoch_seconds=epoch_seconds(r.stdout),
+        metrics_val_best=best, reevaluated=got, rel_err=rel, card=CARD,
+        log=[ln for ln in lines if ln.startswith(
+            ("mesh:", "feed:", "Training epoch", "- Eval"))])
+    if not any(ln.startswith("mesh: 1 data x 2 node over 2 ranks")
+               and ln.endswith("(node-sharded DRN, ring kNN)")
+               for ln in lines):
+        fail("train CLI --model drn --mesh 1x2 --ring_knn did not print its "
+             "node-sharded ring mesh line")
+    for c in counts:
+        fwd = c["edge_mlp_fwd"]
+        if not (fwd > 0 and fwd % cfg.drn.pool_rounds == 0
+                and {k: v for k, v in c.items() if v} == {
+                    "edge_mlp_fwd": fwd, "edge_mlp_bwd": fwd}):
+            fail(f"train CLI --model drn --mesh 1x2: a rank launched "
+                 f"{counts}, want edge_mlp_fwd and edge_mlp_bwd alike")
+    if not rel <= REEVAL_RTOL:
+        fail(f"the --mesh 1x2 DRN run's best.ckpt re-evaluates to {got}, "
+             f"not within {REEVAL_RTOL} of its metrics_val_best.json {best}")
+    return {k: sum(c[k] for c in counts)
+            for k in ("edge_mlp_fwd", "edge_mlp_bwd")}
 
 
 def mesh_world1_phase(device, work: str) -> dict:
@@ -3429,8 +3980,11 @@ def main() -> int:
     # families' evaluation), --mesh 1 on NCCL, the train CLI with --mesh 1x2
     mesh_runs = [mesh_phases(work), mesh_world1_phase(device, work),
                  mesh_cli_phase(work)]
+    drn_cli = mesh_drn_cli_phase(device, work)
     mesh_fwd = sum(m["fwd"] for m in mesh_runs)
     mesh_bwd = sum(m["bwd"] for m in mesh_runs)
+    mesh_drn_fwd = mesh_runs[0]["drn_fwd"] + drn_cli["edge_mlp_fwd"]
+    mesh_drn_bwd = mesh_runs[0]["drn_bwd"] + drn_cli["edge_mlp_bwd"]
 
     # 9-10. the DRN's kernels against their plain versions
     drn, drn_cfg = drn_model(device)
@@ -3505,12 +4059,14 @@ def main() -> int:
             "name": "edge_mlp_fwd", "route": "cuda",
             "source": src + "edge_mlp.cu",
             "replaces": "deepmetv2_tpu/ops/pallas/edge_mlp.py:93",
-            "launches": runs("edge_mlp_fwd"), "library_ms": None},
+            "launches": runs("edge_mlp_fwd") + mesh_drn_fwd,
+            "library_ms": None},
             **emlp), dict({
             "name": "edge_mlp_bwd", "route": "cuda",
             "source": src + "edge_mlp.cu",
             "replaces": "deepmetv2_tpu/ops/pallas/edge_mlp.py:121",
-            "launches": drn_train["edge_mlp_bwd"], "library_ms": None},
+            "launches": drn_train["edge_mlp_bwd"] + mesh_drn_bwd,
+            "library_ms": None},
             **emlp_bwd), dict({
             "name": "window_max_fwd_pipelined", "route": "cuda",
             "source": src + "window_max.cu",

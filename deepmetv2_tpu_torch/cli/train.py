@@ -23,18 +23,18 @@ for it; ``--restore_file`` resumes from a checkpoint of either package,
 ``--compute_dtype bfloat16`` runs GraphMET's EdgeConvs in bf16 and is
 recorded in ``config.json``.
 
-``--mesh D`` trains data parallel over D ranks, ``--mesh DxN`` (GraphMET)
-edge-partitioned over D×N ranks with the halo exchange (parallel/);
+``--mesh D`` trains data parallel over D ranks, ``--mesh DxN`` over
+D×N ranks with each event's nodes split N ways: GraphMET edge-partitioned
+with the halo exchange, the DRN node-sharded (parallel/dyn.py; its kNN
+graph by the all-gather build, or with ``--ring_knn`` the ring build);
 the batch size must divide by D and the node buckets by N, and the host
-sort defaults to eta order for DxN runs.  Not under torchrun, the CLI
-spawns its D·N ranks itself (``--mesh 1`` runs its one rank in-process);
-under torchrun (RANK, WORLD_SIZE, MASTER_ADDR in the environment) each
-process is one rank.  Each rank gets a card of its own where there are
-enough (NCCL), else all share the requested one (gloo, collectives
-staged through host copies), or the CPU (gloo); the "mesh:" line says
-which.  Mesh chains are eager steps.  Flags of paths not ported yet
-(``--model drn --mesh DxN`` with N > 1, ``--ring_knn``) exit non-zero with
-"not ported yet".
+sort defaults to eta order for GraphMET's DxN runs.  Not under torchrun,
+the CLI spawns its D·N ranks itself (``--mesh 1`` runs its one rank
+in-process); under torchrun (RANK, WORLD_SIZE, MASTER_ADDR in the
+environment) each process is one rank.  Each rank gets a card of its own
+where there are enough (NCCL), else all share the requested one (gloo,
+collectives staged through host copies), or the CPU (gloo); the "mesh:"
+line says which.  Mesh chains are eager steps.
 """
 
 from __future__ import annotations
@@ -112,11 +112,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "positions and adjacency stay float32")
     p.add_argument("--mesh", default=None, metavar="DxN",
                    help="train over a mesh of ranks: 'D' data parallel over "
-                        "D ranks, 'DxN' data x node (edge-partitioned window "
-                        "mode with halo exchange), e.g. --mesh 2 or --mesh "
+                        "D ranks, 'DxN' data x node (GraphMET "
+                        "edge-partitioned in window mode with halo exchange, "
+                        "the DRN node-sharded), e.g. --mesh 2 or --mesh "
                         "1x2; batch_size must divide by D, node buckets by N")
-    # the JAX package's flag of a path that is not ported yet
-    p.add_argument("--ring_knn", action="store_true")
+    p.add_argument("--ring_knn", action="store_true",
+                   help="node-sharded DRN runs (--model drn --mesh DxN): "
+                        "build each round's kNN graph with the ring "
+                        "top-k instead of the all-gather build; the build "
+                        "holds O(B*n_loc*(D+k)) per rank, but the rest of "
+                        "the round (lists, conv, matching, pooling) still "
+                        "holds the whole node axis on every rank")
     return p
 
 
@@ -137,20 +143,18 @@ def parse_mesh(spec):
 
 
 def check_flags(args):
-    """Refuse what the port does not have yet and a mesh the batches do not
-    divide over (the JAX CLI's checks, cli/train.py:283-298); returns the
-    mesh's (n_data, n_node) or None."""
+    """Refuse flags that do not fit together and a mesh the batches do not
+    divide over (the JAX CLI's checks, cli/train.py:194-198, 283-298);
+    returns the mesh's (n_data, n_node) or None."""
     dims = parse_mesh(args.mesh)
-    bad = (["--ring_knn"] if args.ring_knn else []) + (
-        [f"--model drn --mesh {args.mesh}"]
-        if args.model == "drn" and dims and dims[1] > 1 else [])
-    if bad:
-        raise SystemExit(f"{', '.join(bad)}: not ported yet (ROADMAP A8c; "
-                         "the JAX package deepmetv2_tpu.cli.train has it)")
+    if args.ring_knn and not (args.model == "drn" and dims and dims[1] > 1):
+        raise SystemExit("--ring_knn requires --model drn and a "
+                         "node-sharded mesh (--mesh DxN, N > 1)")
     check_from_torch(args)
     if dims:
         n_data, n_node = dims
-        if n_node > 1 and args.graph_mode != "window":
+        if (n_node > 1 and args.model == "graphmet"
+                and args.graph_mode != "window"):
             raise SystemExit(f"--mesh {args.mesh}: edge partitioning runs "
                              "window mode (--graph_mode window)")
         if args.batch_size % n_data:
@@ -256,6 +260,8 @@ def run(args, device, mesh=None) -> int:
              if v is not None}
     drn = {k: v for k, v in (("aggr", args.drn_aggr),
                              ("head", args.drn_head)) if v is not None}
+    if args.ring_knn:
+        drn["ring_knn"] = True
     # recorded for either family, as the JAX CLI does (its DRN never reads it)
     dtype = {"compute_dtype": args.compute_dtype} if args.compute_dtype else {}
     cfg = dataclasses.replace(
@@ -279,7 +285,7 @@ def run(args, device, mesh=None) -> int:
     # Edge-partitioned runs sort in eta order by default, which keeps the
     # exchanged halo smallest (the JAX CLI's choice, cli/train.py:207-215).
     sort_mode = args.sort_mode or ("eta" if shard_nodes else "cell")
-    if args.sort_mode == "cell" and shard_nodes:
+    if args.sort_mode == "cell" and shard_nodes and not is_drn:
         say("note: cell-order edge partitioning exchanges the (wider) cell "
             "span as its halo; 'eta' minimizes the exchanged rows")
     presort = args.graph_mode == "window" and not is_drn
@@ -303,8 +309,11 @@ def run(args, device, mesh=None) -> int:
     say("device:", device,
         torch.cuda.get_device_name(device) if device.type == "cuda" else "")
     if mesh is not None:
-        say(f"mesh: {mesh.describe()}"
-            + (" (edge-partitioned)" if shard_nodes else ""))
+        how = ("" if not shard_nodes
+               else " (edge-partitioned)" if not is_drn
+               else " (node-sharded DRN, "
+               f"{'ring' if cfg.drn.ring_knn else 'all-gather'} kNN)")
+        say(f"mesh: {mesh.describe()}{how}")
         if cfg.model.compute_dtype != "float32":
             say(f"note: mesh steps compute float32 whatever compute_dtype "
                 f"({cfg.model.compute_dtype}) says, as the JAX package's do")

@@ -17,6 +17,14 @@ Per reduction round (``pool_rounds``, 2 in ``ckpts_syn_drn``):
 Then the per-event max pool and the output MLP, under a polar or a
 cartesian head.
 
+With an injected graph build ``knn_fn`` (the JAX package's hook,
+models/drn.py:279-378) a round is instead ``to_undirected(knn_fn(h,
+mask), cap)``, the conv, the list matching on the detached features and
+the pooling, with no compaction, all on the whole node axis; the
+node-sharded DRN (parallel/dyn.py) injects its distributed builds there,
+and ``nodes`` says how the node axis is laid out (``WholeAxis``: all of it
+here).
+
 In training mode (``model.train()``) each round's BatchNorm normalizes
 with the batch statistics of the valid edge messages and updates its
 running buffers as the JAX package does; the fused conv's gradient runs
@@ -34,6 +42,7 @@ writes one (models/layout.py).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Iterator, Optional, Sequence, Tuple
 
@@ -46,11 +55,15 @@ from deepmetv2_tpu_torch.models.layout import JaxLayout
 from deepmetv2_tpu_torch.nn.core import (MLP, MaskedBatchNorm, elu,
                                          masked_moments)
 from deepmetv2_tpu_torch.ops import edge_mlp
-from deepmetv2_tpu_torch.ops.coarsen import global_max_pool, max_pool
+from deepmetv2_tpu_torch.ops.coarsen import (global_max_pool,
+                                             handshake_matching, max_pool,
+                                             normalized_cut_weights)
 from deepmetv2_tpu_torch.ops.cuda.edge_mlp import edge_mlp_conv
 from deepmetv2_tpu_torch.ops.dyn_graph import build_dyn_graph, cut_matching
+from deepmetv2_tpu_torch.ops.graph import to_undirected
 from deepmetv2_tpu_torch.ops.segment import (batched_take, gather_neighbors,
                                              gather_neighbors_mirror)
+from deepmetv2_tpu_torch.parallel import context as pctx
 
 # The DRN's default input scales (reference model/net.py:20-31), in the
 # data pipeline's feature order [px, py, pt, eta, d0, dz, mass,
@@ -193,8 +206,9 @@ def _drn_edgeconv(conv: DRNConv, x: torch.Tensor, nbr: Neighborhood,
                                    bn.beta, bn.running_mean, bn.running_var,
                                    train, aggr)
     if train:
-        bn.update_running(mean, var,
-                          torch.clamp(nbr.mask.sum(), min=1).to(var.dtype))
+        total = pctx.batch_sum() or (lambda t: t)
+        bn.update_running(mean, var, torch.clamp(total(nbr.mask.sum()),
+                                                 min=1).to(var.dtype))
     return out
 
 
@@ -229,9 +243,62 @@ def compact_dropped(mask: torch.Tensor) -> torch.Tensor:
     return torch.clamp(mask.sum(dim=1).max() - ncomp, min=0)
 
 
+class WholeAxis:
+    """The node layout of a forward that holds every node of its events:
+    ``gather`` (this layout's rows → the whole axis 1) and ``local`` (the
+    whole axis → this layout's rows) are identities, and ``whole_axis()``
+    (the context of the ops on the whole axis) changes nothing.  The
+    node-sharded DRN's layout is parallel/dyn.py:NodeShards."""
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def whole_axis(self):
+        return contextlib.nullcontext()
+
+
+def _gather_lists(nodes, nbr: Neighborhood) -> Neighborhood:
+    """``nbr``'s lists over the whole node axis, one gather (invalid slots
+    travel as −1)."""
+    packed = nodes.gather(torch.where(nbr.mask, nbr.idx,
+                                      torch.full_like(nbr.idx, -1)))
+    return Neighborhood(idx=torch.clamp(packed, min=0), mask=packed >= 0)
+
+
+def _listed_round(conv: DRNConv, h: torch.Tensor, mask: torch.Tensor,
+                  cfg: DRNConfig, train: bool, knn_fn, nodes,
+                  conv_force: Optional[str], diag: Optional[dict]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One round on an injected graph build (JAX models/drn.py:330-345):
+    the undirected lists of ``knn_fn``'s graph, the conv
+    (``_drn_edgeconv``: the fused conv where it takes the shapes), the
+    list matching on the detached post-conv features (normalized-cut
+    weights, handshake), the pooling.  All of them see the whole node axis
+    (``nodes.gather``), as the JAX package's sharded trace replicates the
+    conv's pallas_call; the conv's BatchNorm statistics are taken in
+    ``nodes.whole_axis()``, and each layout keeps its own rows
+    (``nodes.local``)."""
+    nbr = to_undirected(_gather_lists(nodes, knn_fn(h, mask)),
+                        cap=cfg.und_cap)
+    h, mask = nodes.gather(h), nodes.gather(mask)
+    with nodes.whole_axis():
+        h = _drn_edgeconv(conv, h, nbr, cfg.aggr, train, force=conv_force)
+    # the graph is discrete: no gradient through the matching's weights
+    w = normalized_cut_weights(h.detach(), nbr)
+    cluster, partner = handshake_matching(w, nbr, mask)
+    if diag is not None:
+        diag.setdefault("rounds", []).append((mask, nbr, cluster, partner))
+    h, mask = max_pool(h, cluster, partner, mask)
+    return nodes.local(h), nodes.local(mask)
+
+
 def drn_apply(model: DRN, x: torch.Tensor, mask: torch.Tensor,
               diag: Optional[dict] = None, graph_force: Optional[str] = None,
-              conv_force: Optional[str] = None) -> torch.Tensor:
+              conv_force: Optional[str] = None, knn_fn=None,
+              nodes=None) -> torch.Tensor:
     """Forward → per-event outputs ``[B, output_dim]`` (reference
     model/dynamic_reduction_network.py:82-103).  ``diag``, if given,
     collects ``compact_dropped`` per compaction and, under ``rounds``, each
@@ -239,9 +306,23 @@ def drn_apply(model: DRN, x: torch.Tensor, mask: torch.Tensor,
     mode picks the BatchNorm statistics (``model.train()``: the batch's,
     and the running buffers update).  ``graph_force`` ('fused' or
     'composed') pins the graph build, ``conv_force`` ('fused' or 'xla')
-    the conv, as the JAX package's arguments do; None picks by shape."""
+    the conv, as the JAX package's arguments do; None picks by shape.
+
+    ``knn_fn(h, mask) -> Neighborhood`` replaces the graph build (rounds
+    by ``_listed_round``; ``graph_force`` then does not apply), and
+    ``nodes`` (default ``WholeAxis()``) lays out the node axis: ``x`` and
+    ``mask`` are its rows, and the rounds and the per-event max pool take
+    the whole axis.  ``diag``'s rounds then hold the whole axis's
+    decisions."""
     cfg = model.cfg
     h = model.inputnet(model.datanorm * x, final_act=True)
+    if knn_fn is not None:
+        nodes = nodes or WholeAxis()
+        for conv in model.convs:
+            h, mask = _listed_round(conv, h, mask, cfg, model.training,
+                                    knn_fn, nodes, conv_force, diag)
+        return model.output(global_max_pool(nodes.gather(h),
+                                            nodes.gather(mask)))
     for r, conv in enumerate(model.convs):
         g = build_dyn_graph(h, mask, k=cfg.k, cap=cfg.und_cap,
                             want_mirror=cfg.mirror_gather, force=graph_force)
@@ -268,13 +349,15 @@ def drn_apply(model: DRN, x: torch.Tensor, mask: torch.Tensor,
 def drn_net_apply(model: DRN, batch: EventBatch,
                   diag: Optional[dict] = None,
                   graph_force: Optional[str] = None,
-                  conv_force: Optional[str] = None) -> torch.Tensor:
+                  conv_force: Optional[str] = None, knn_fn=None,
+                  nodes=None) -> torch.Tensor:
     """The head on ``drn_apply``: 'cartesian' gives (METx, METy) scaled by
     ``output_scale``; 'polar' gives (MET, φ) with MET = scale·softplus and
-    φ = π·(2·sigmoid − 1)."""
+    φ = π·(2·sigmoid − 1).  ``knn_fn`` and ``nodes`` go to ``drn_apply``."""
     cfg = model.cfg
     x = torch.cat([batch.x_cont, batch.x_cat.to(batch.x_cont.dtype)], dim=-1)
-    out = drn_apply(model, x, batch.mask, diag, graph_force, conv_force)
+    out = drn_apply(model, x, batch.mask, diag, graph_force, conv_force,
+                    knn_fn, nodes)
     if cfg.head == "cartesian":
         return cfg.output_scale * out[:, 0:2]
     met = cfg.output_scale * torch.logaddexp(out[:, 0:1],

@@ -193,10 +193,17 @@ def bn_combine(agg0: torch.Tensor, agg1: Optional[torch.Tensor],
     """``(out [B, N, H2], mean, var)``: BatchNorm commuted through the
     aggregation (edge_mlp.py:361-386).  ``train`` normalizes with the
     batch statistics (biased variance) and returns them; otherwise the
-    running ones are used and returned.  Rows without a valid slot are 0."""
+    running ones are used and returned.  Rows without a valid slot are 0.
+    In a mesh step the edge count and the statistics rows are sums over
+    the ranks that hold the global batch (parallel/context.py:batch_sum),
+    as in nn/core.py:masked_moments."""
+    from deepmetv2_tpu_torch.parallel.context import batch_sum
+
     deg = edge_mask.to(agg0.dtype).sum(dim=-1)                # [B, N]
-    n = torch.clamp(deg.sum(), min=1.0)
     if train:
+        total = batch_sum() or (lambda t: t)
+        n = torch.clamp(total(deg.sum()), min=1.0)
+        stats = total(stats)
         mean = stats[0] / n
         var = torch.clamp(stats[1] / n - mean * mean, min=0.0)
     else:

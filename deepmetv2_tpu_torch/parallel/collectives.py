@@ -15,6 +15,14 @@
   node group, posted asynchronously (``PendingExchange``) so that a
   caller can run local work before it waits.
 * ``gather_rows``: the all-gather of evaluation outputs, no gradient.
+* ``gather_nodes``: the all-gather of a node shard over its node group
+  (the node-sharded DRN, parallel/dyn.py): every rank gets the whole
+  padded node axis; its backward is the reduce-scatter, each rank's
+  cotangent of the whole axis summed over the group and this rank's rows
+  kept (an all-reduce, then a slice).
+* ``ring_shift``: the node group's ring rotation (the JAX ``ppermute`` to
+  ``(n + 1) mod N``): each rank sends its tensor to the next rank and
+  receives the previous rank's, no gradient.
 
 Every rank of a group must call the same collectives in the same order;
 the backwards run in the order autograd visits the (identical) graphs.
@@ -124,3 +132,50 @@ class HaloExchange(torch.autograd.Function):
         if n > 0:                   # my left edge was my left neighbour's
             dc[:, :h] += parts[n - 1][:, h:]               # from_right
         return dc, None, None, None, None
+
+
+class _GatherNodes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh, ctx.n_loc = mesh, t.shape[1]
+        return torch.cat(mesh.all_gather(t, mesh.node_group), dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, n = ctx.mesh, ctx.n_loc
+        g = mesh.all_reduce(g.contiguous().clone(), mesh.node_group)
+        return g[:, mesh.node_index * n:(mesh.node_index + 1) * n], None
+
+
+def gather_nodes(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The node shards ``t [B, n_loc, ...]`` of this rank's node group
+    concatenated along axis 1 in node order, ``[B, N, ...]``.  A float
+    tensor's gradient is the reduce-scatter: the cotangents of every rank
+    of the group summed, this rank's rows.  Integer and bool tensors carry
+    none.  Identity on a node axis of 1."""
+    if mesh.n_node == 1:
+        return t
+    if not t.is_floating_point():
+        return torch.cat(mesh.all_gather(t, mesh.node_group), dim=1)
+    return _GatherNodes.apply(t, mesh)
+
+
+def ring_shift(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The ring rotation inside the node group: this rank sends ``t`` to
+    node index ``(n + 1) mod N`` of its data row and returns the tensor of
+    node index ``(n − 1) mod N`` (same shape and dtype), no gradient.  On a
+    staged mesh both travel through host copies."""
+    if mesh.n_node == 1:
+        return t
+    row = mesh.data_index * mesh.n_node
+    send = t.detach().contiguous()
+    if mesh.staged:
+        send = send.cpu()
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send,
+                      row + (mesh.node_index + 1) % mesh.n_node),
+           dist.P2POp(dist.irecv, recv,
+                      row + (mesh.node_index - 1) % mesh.n_node)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv.to(t.device)

@@ -177,18 +177,16 @@ class ChainedStep:
 
 def mesh_train_step(cfg: Config, model: str, mesh,
                     shard_nodes: bool = False) -> Callable:
-    """The per-step mesh train step of the family ``model``: the
-    edge-partitioned GraphMET step with ``shard_nodes``, else the
-    data-parallel step of either family."""
+    """The per-step mesh train step of the family ``model``: with
+    ``shard_nodes`` the edge-partitioned GraphMET step or the node-sharded
+    DRN step, else the data-parallel step of either family."""
     from deepmetv2_tpu_torch.parallel.dp import make_dp_train_step
+    from deepmetv2_tpu_torch.parallel.dyn import make_drn_ep_train_step
     from deepmetv2_tpu_torch.parallel.ep import make_ep_train_step
 
     if shard_nodes:
-        if model == "drn":
-            raise NotImplementedError(
-                "the node-sharded DRN (--model drn --mesh DxN, N > 1) is not "
-                "ported yet (ROADMAP A8c)")
-        return make_ep_train_step(cfg, mesh)
+        return (make_drn_ep_train_step(cfg, mesh) if model == "drn"
+                else make_ep_train_step(cfg, mesh))
     return make_dp_train_step(cfg, mesh, model)
 
 

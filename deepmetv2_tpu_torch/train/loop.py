@@ -167,15 +167,15 @@ def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
     ``mesh`` (parallel/mesh.py, this rank's view; ``device`` its device)
     trains on a mesh, as the JAX package's ``fit`` does (loop.py:183-240):
     data parallel over the ``data`` axis, and with ``shard_nodes``
-    edge-partitioned over the ``node`` axis (GraphMET, window mode,
-    host-sorted batches); each rank stages only its own rows, chains are
-    loops of eager mesh steps, and evaluation is data parallel
+    edge-partitioned over the ``node`` axis (GraphMET: window mode,
+    host-sorted batches; the DRN: node-sharded, parallel/dyn.py, its kNN
+    build by ``cfg.drn.ring_knn``); each rank stages only its own rows,
+    chains are loops of eager mesh steps, and evaluation is data parallel
     (parallel/dp.py:make_dp_eval_step on batches padded to a multiple of
-    D).  Every rank reads the checkpoint
-    it resumes from; only rank 0 writes checkpoints, logs and artifacts,
-    and only it prints.  The BatchNorm refresh runs the single-device
-    forward on the whole host batch on every rank, as the JAX package's
-    does."""
+    D).  Every rank reads the checkpoint it resumes from; only rank 0
+    writes checkpoints, logs and artifacts, and only it prints.  The
+    BatchNorm refresh runs the single-device forward on the whole host
+    batch on every rank, as the JAX package's does."""
     primary = mesh is None or mesh.rank == 0
     verbose = verbose and primary
     if primary:

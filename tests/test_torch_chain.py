@@ -216,12 +216,19 @@ def test_drn_chained_matches_jax():
     np.testing.assert_allclose(tl, jl, rtol=RESUMED_LOSS_RTOL)
 
 
-def test_chained_step_refuses_a_mesh_and_unknown_family():
-    """A mesh chain is ported (tests/test_torch_mesh.py) except the
-    node-sharded DRN's (ROADMAP A8c)."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tchain.make_chained_train_step(_graphmet_cfg(), "drn", mesh=object(),
-                                       shard_nodes=True)
+def test_chained_step_refuses_a_mesh_and_unknown_family(monkeypatch):
+    """Every mesh chain is ported (tests/test_torch_mesh.py,
+    tests/test_torch_dyn.py): the node-sharded DRN's is the loop of its
+    node-sharded step (parallel/dyn.py).  An unknown family is refused."""
+    from deepmetv2_tpu_torch.parallel import dyn
+
+    def step(model, optimizer, batch):
+        return None
+
+    monkeypatch.setattr(dyn, "make_drn_ep_train_step", lambda cfg, mesh: step)
+    run = tchain.make_chained_train_step(_graphmet_cfg(), "drn",
+                                         mesh=object(), shard_nodes=True)
+    assert run.func is tchain._run_chain and run.args == (step,)
     with pytest.raises(ValueError, match="unknown model family"):
         tchain.make_chained_train_step(_graphmet_cfg(), "gnn")
 

@@ -381,7 +381,7 @@ def test_train_cli_mesh_runs(mesh, tmp_path):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--model", "drn", "--mesh", "1x2"], "not ported yet (ROADMAP A8c"),
+    (["--mesh", "1x2", "--ring_knn"], "--ring_knn requires --model drn"),
     (["--mesh", "3"], "not divisible by data axis 3"),
     (["--mesh", "1x3"], "not divisible by node axis 3"),
     (["--mesh", "2x"], "expected 'D' or 'DxN'"),
@@ -411,12 +411,19 @@ def test_train_cli_mesh_failed_rank_exits_nonzero(tmp_path):
 
 
 def test_rank_worker_imports_no_jax():
-    """The rank processes never import JAX or the JAX package."""
-    tree = ast.parse(open(osp.join(REPO, "tests",
-                                   "torch_mesh_worker.py")).read())
-    mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
-            for a in n.names]
-    mods += [n.module for n in ast.walk(tree)
-             if isinstance(n, ast.ImportFrom) and n.module]
-    assert not [m for m in mods if m.split(".")[0] in ("jax",
-                                                       "deepmetv2_tpu")]
+    """The rank processes, and the port's modules they and the mesh paths
+    reach, never import JAX or the JAX package."""
+    port = osp.join(REPO, "deepmetv2_tpu_torch")
+    for path in [osp.join(REPO, "tests", "torch_mesh_worker.py")] + [
+            osp.join(port, f) for f in (
+                "parallel/collectives.py", "parallel/knn.py",
+                "parallel/dyn.py", "utils/profiling.py",
+                "plotting/__init__.py", "plotting/resolution.py",
+                "plotting/weights.py", "cli/plot.py", "cli/plot_weight.py")]:
+        tree = ast.parse(open(path).read())
+        mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names]
+        mods += [n.module for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom) and n.module]
+        assert not [m for m in mods if m.split(".")[0] in (
+            "jax", "deepmetv2_tpu")], path

@@ -262,17 +262,20 @@ def test_u_perp_par_loss_matches_jax(small):
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
-@pytest.mark.parametrize("flags", [["--model", "drn", "--mesh", "1x2"],
-                                   ["--ring_knn"],
-                                   ["--model", "drn", "--ring_knn"]])
+@pytest.mark.parametrize("flags", [["--ring_knn"],
+                                   ["--model", "drn", "--ring_knn"],
+                                   ["--model", "drn", "--mesh", "2",
+                                    "--ring_knn"]])
 def test_train_cli_unported_flags_exit_nonzero(flags, tmp_path):
+    """``--ring_knn`` without the DRN on a node-sharded mesh exits with the
+    JAX CLI's message (its cli/train.py:194-198)."""
     from deepmetv2_tpu_torch.cli import train as train_cli
 
     with pytest.raises(SystemExit) as exc:
         train_cli.main(["--synthetic", "4", "--ckpts", str(tmp_path),
                         "--device", "cpu"] + flags)
-    assert exc.value.code not in (0, None)
-    assert "not ported yet" in str(exc.value.code)
+    assert str(exc.value.code) == ("--ring_knn requires --model drn and a "
+                                   "node-sharded mesh (--mesh DxN, N > 1)")
 
 
 def test_train_cli_mesh_flag_accepted(tmp_path):

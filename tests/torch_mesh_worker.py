@@ -208,8 +208,73 @@ def fit_task(spec, rank, world):
     return {"state": _state(model), "halo": cfg.graph.window_halo}
 
 
+def _shard(a, mesh, nodes: bool = True):
+    """This rank's events (axis 0) and, with ``nodes``, node shard (axis
+    1) of ``a``."""
+    rows = a.shape[0] // mesh.n_data
+    a = a[mesh.data_index * rows:(mesh.data_index + 1) * rows]
+    if nodes:
+        n = a.shape[1] // mesh.n_node
+        a = a[:, mesh.node_index * n:(mesh.node_index + 1) * n]
+    return torch.tensor(np.ascontiguousarray(a))
+
+
+def dyn_task(spec, rank, world):
+    """The node-sharded DRN's cases: for each of ``spec['knn']`` both kNN
+    builds on this rank's shard; for each of ``spec['forward']`` the
+    sharded forward with its head in eval and train mode by each build
+    (its output, and the BatchNorm buffers after the train-mode pass) and
+    without it in eval mode (``raw``); each of ``spec['train']`` through
+    ``train_task``."""
+    from deepmetv2_tpu_torch.parallel.dyn import (drn_apply_sharded,
+                                                  drn_net_apply_sharded)
+    from deepmetv2_tpu_torch.parallel.knn import (knn_graph_sharded,
+                                                  knn_graph_sharded_ring)
+    from deepmetv2_tpu_torch.parallel.mesh import Mesh, shard_batch
+    from deepmetv2_tpu_torch.data.batching import to_device
+
+    meshes = {}
+
+    def mesh_of(dims):          # every rank builds the same meshes in order
+        dims = tuple(dims)
+        if dims not in meshes:
+            meshes[dims] = Mesh(*dims)
+        return meshes[dims]
+
+    out = {"knn": [], "forward": [], "train": []}
+    for case in spec["knn"]:
+        mesh = mesh_of(case["mesh"])
+        x, m = _shard(case["x"], mesh), _shard(case["mask"], mesh)
+        out["knn"].append({
+            name: tuple(t.numpy() for t in build(x, m, k=case["k"],
+                                                 mesh=mesh, loop=case["loop"]))
+            for name, build in (("gather", knn_graph_sharded),
+                                ("ring", knn_graph_sharded_ring))})
+    for case in spec["forward"]:
+        mesh = mesh_of(case["mesh"])
+        cfg = _config(case)
+        local = to_device(shard_batch(_batch(case["batch"]), mesh, True),
+                          "cpu")
+        res = {}
+        for ring in (False, True):
+            for train in (False, True):
+                model = _model(case, cfg).train(train)
+                with torch.set_grad_enabled(train):
+                    pred = drn_net_apply_sharded(model, local, mesh, ring)
+                res[ring, train] = {"pred": pred.detach().numpy(),
+                                    "state": _state(model)}
+        x = torch.cat([local.x_cont, local.x_cat.to(local.x_cont.dtype)], -1)
+        with torch.no_grad():
+            res["raw"] = drn_apply_sharded(_model(case, cfg).eval(), x,
+                                           local.mask, mesh).numpy()
+        out["forward"].append(res)
+    for case in spec["train"]:
+        out["train"].append(train_task(case, rank, world))
+    return out
+
+
 TASKS = {"train": train_task, "eval": eval_task, "window": window_task,
-         "exchange": exchange_task, "fit": fit_task}
+         "exchange": exchange_task, "fit": fit_task, "dyn": dyn_task}
 
 
 def main(argv) -> None:
