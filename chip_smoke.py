@@ -42,6 +42,21 @@ Phases, each printing one line:
      checked), with the exact launch counts (replays included), each
      epoch's seconds, the artifacts, and its best.ckpt re-evaluated by the
      evaluate CLI;
+  8a. etl_data, the real-data path at CMS-scale event sizes: (a) the
+     chunks of ETL_CHUNKS (etl_chunk: 500-5000 candidates per event, a
+     central eta core) through the ETL CLI in both modes, each slice's
+     arrays against GOLDEN_ETL_DIGESTS; (b) window_max_fwd and
+     window_max_bwd bitwise against their plain versions on the largest
+     cell-sorted train batch (N=8192, the train CLI's halo
+     GOLDEN_ETL_TRAIN_HALO), with times, bounds and kept chunks; (c) the
+     evaluate CLI on the slices within LOSS_RTOL of GOLDEN_ETL_LOSS, its
+     halo GOLDEN_ETL_HALO, exact launches; (d) 10 chained steps resumed
+     from ckpts_syn/best.ckpt on the first 10 cell-sorted train batches,
+     each within LOSS_RTOL of GOLDEN_ETL_TRAIN_LOSSES; (e) the train CLI
+     for 1 epoch (its "feed:" and "graph mode:" lines, exact launches with
+     replays), best.ckpt re-evaluated within REEVAL_RTOL; (f) one train
+     and one evaluation step at N=8192 profiled, and the host's seconds
+     for collating, cell sort and halo sizing;
   8b. neighbor_list mode (GraphMET on the radius graph's lists, capped at
      256, no kernel of its own): nl_evaluate, the evaluate CLI on
      synthetic 2000 held to GOLDEN_NL_LOSS with no window launch, its
@@ -315,6 +330,134 @@ DRN_STEP_LOSS_RTOL = 2e-4
 DRN_STEP_GRAD_ATOL = 2e-3
 DRN_STEP_PARAM_ATOL = 2e-6
 DRN_STEP_BN_ATOL = 1e-5
+
+# The etl_data phase: NanoAOD-shaped chunks from etl_chunk, through the
+# port's ETL CLI (two dytt chunks of 250 events and one znunu chunk of 100,
+# seeds ETL_SEED + i), into the real-data path at CMS-scale event sizes.
+ETL_SEED = 1300
+ETL_CHUNKS = (("dytt", 250), ("dytt", 250), ("znunu", 100))
+ETL_PF = (500, 5001)         # PF candidates per event, integers(lo, hi)
+# The JAX package's ETL CLI on those chunks, on the CPU:
+# tests/test_torch_etl.py:jax_etl_digests() (numpy 2.0.2)
+GOLDEN_ETL_DIGESTS = {
+    "dytt_file0_slice_0_nevent_224.npz": (
+        "0501d7256bfd8dda5378cf6ea760a4f39fee4b628fa5baa8cd3e3d23390d86fe",
+        "e5f2da11fb26be165c4ebd35223d96134d395ba8d64fee0bfdcadfb1ee8da8c0"),
+    "dytt_file1_slice_0_nevent_227.npz": (
+        "225b1075d129d28eb6c8417e5358c2c72dd69404110907bdc9f4ffd17b291c56",
+        "376e8493e7fa5ae5eef8567dcb4852dd7baac11bce8c506a2d16a08d17a45b51"),
+    "znunu_file0_slice_0_nevent_100.npz": (
+        "904374f1f40cdc9517eb81ffbcde2c04621f0855552051e13ecb47c5efad67c0",
+        "9dae24917bf0fca1edf2047248ae4f039ca5a3c0650730c186cd167e6323a11f")}
+# The JAX evaluate CLI on those slices with ckpts_syn/best.ckpt (batch 40,
+# the halo sized on the whole dataset in eta order), on the CPU:
+# tests/test_torch_etl.py:jax_etl_eval_loss()
+GOLDEN_ETL_LOSS = 9262.806640625
+GOLDEN_ETL_HALO = 512
+# The JAX package's train step from ckpts_syn/best.ckpt on the first 10
+# cell-sorted train batches of those slices (batch 8, the halo its train
+# CLI sizes on both cell-sorted loaders), on the CPU:
+# tests/test_torch_etl.py:jax_etl_resume_losses(10).  The port's CPU steps
+# (port_etl_resume_losses(10)) are within 2.03e-5 of them (step 5; steps
+# 0-4 within 1.9e-6): the gate is LOSS_RTOL's.
+GOLDEN_ETL_TRAIN_LOSSES = (
+    13798.6259765625, 8941.5322265625, 10586.8916015625, 8121.35595703125,
+    5916.4599609375, 3797.9423828125, 7831.9423828125, 16182.400390625,
+    11315.0810546875, 14051.0)
+GOLDEN_ETL_TRAIN_HALO = 768
+
+
+def etl_chunk(seed: int, n_events: int, leptons: bool, n_pf=ETL_PF) -> dict:
+    """A NanoAOD-shaped chunk in the data model of etl/common.py (ragged
+    collections as lists of per-event arrays), numpy only, drawn with
+    ``integers``, ``random``, ``uniform`` and ``standard_normal``, whose
+    streams numpy keeps from version to version.
+
+    PF candidates: ``integers(*n_pf)`` per event; eta 70 % a central core
+    (standard normal x 1.6, clipped to +-5), 30 % uniform in +-5; phi
+    uniform; pt Pareto (alpha 2.5, from 0.5 GeV) by its inverse CDF;
+    |pdgId| from the classes GraphMET embeds (1, 2, 11, 13, 22, 130, 211)
+    with charged ones signed, fromPV 0-3.  With ``leptons``: two muons
+    (pt 30-90, |eta| < 2.4, tight and isolated) of which the second fails
+    the pt cut in about 10 % of events, 0-1 electrons (pt 15-30, WP80 half
+    the time), and PF candidate 0 planted 1e-5 in eta from the leading
+    muon, which overlap removal then drops.  The five MET collections
+    (pt 0-200) and LHE HT (100-1000)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    pdgs = np.array([1, 2, 11, 13, 22, 130, 211], np.int32)
+    charged = np.array([0, 0, 1, 1, 0, 0, 1], np.int32)
+    cum = np.cumsum([0.04, 0.04, 0.02, 0.02, 0.25, 0.13, 0.50])[:-1]
+    fields = ("pt", "eta", "phi", "d0", "dz", "mass", "puppiWeight",
+              "pdgId", "charge", "fromPV", "pvRef", "pvAssocQuality")
+    pf = {f: [] for f in fields}
+    mu = {f: [] for f in ("pt", "eta", "phi", "tightId", "pfRelIso03_all")}
+    el = {f: [] for f in ("pt", "eta", "phi", "mvaFall17V1Iso_WP80")}
+    for _ in range(n_events):
+        n = int(rng.integers(*n_pf))
+        core = rng.random(n) < 0.7
+        eta = np.where(core, np.clip(rng.standard_normal(n) * 1.6, -5, 5),
+                       rng.uniform(-5, 5, n)).astype(f32)
+        phi = rng.uniform(-np.pi, np.pi, n).astype(f32)
+        pt = (0.5 * (1.0 - rng.random(n)) ** (-1 / 2.5)).astype(f32)
+        cls = np.searchsorted(cum, rng.random(n), side="right")
+        sign = (2 * rng.integers(0, 2, n) - 1).astype(np.int32)
+        pdg = pdgs[cls] * np.where(charged[cls] == 1, sign, 1)
+        pf["pt"].append(pt)
+        pf["eta"].append(eta)
+        pf["phi"].append(phi)
+        pf["d0"].append((rng.standard_normal(n) * 0.05).astype(f32))
+        pf["dz"].append((rng.standard_normal(n) * 2.0).astype(f32))
+        pf["mass"].append(np.where(cls == 6, 0.13957, np.where(
+            cls == 5, 0.49761, 0.0)).astype(f32))
+        pf["puppiWeight"].append(rng.random(n).astype(f32))
+        pf["pdgId"].append(pdg.astype(np.int32))
+        pf["charge"].append(charged[cls] * -sign)
+        pf["fromPV"].append(rng.integers(0, 4, n).astype(np.int32))
+        pf["pvRef"].append(rng.integers(0, 60, n).astype(np.int32))
+        pf["pvAssocQuality"].append(rng.integers(0, 8, n).astype(np.int32))
+        if not leptons:
+            continue
+        mpt = np.sort(30 + 60 * rng.random(2))[::-1].astype(f32)
+        if rng.random() >= 0.9:
+            mpt[1] = f32(5 + 10 * rng.random())         # fails pt > 20
+        mu["pt"].append(mpt)
+        mu["eta"].append(rng.uniform(-2.4, 2.4, 2).astype(f32))
+        mu["phi"].append(rng.uniform(-np.pi, np.pi, 2).astype(f32))
+        mu["tightId"].append(np.ones(2, np.int32))
+        mu["pfRelIso03_all"].append((0.1 * rng.random(2)).astype(f32))
+        ne = int(rng.integers(0, 2))
+        el["pt"].append((15 + 15 * rng.random(ne)).astype(f32))
+        el["eta"].append(rng.uniform(-2.5, 2.5, ne).astype(f32))
+        el["phi"].append(rng.uniform(-np.pi, np.pi, ne).astype(f32))
+        el["mvaFall17V1Iso_WP80"].append(
+            rng.integers(0, 2, ne).astype(np.int32))
+        eta[0] = mu["eta"][-1][0] + f32(1e-5)   # the leading lepton's twin
+        phi[0] = mu["phi"][-1][0]
+    chunk = {"PFCands": pf, "LHE": {"HT": rng.uniform(100, 1000, n_events)
+                                    .astype(f32)}}
+    for coll in ("GenMET", "MET", "PuppiMET", "DeepMETResponseTune",
+                 "DeepMETResolutionTune"):
+        chunk[coll] = {"pt": rng.uniform(0, 200, n_events).astype(f32),
+                       "phi": rng.uniform(-np.pi, np.pi, n_events)
+                       .astype(f32)}
+    if leptons:
+        chunk["Muon"], chunk["Electron"] = mu, el
+    return chunk
+
+
+def etl_array_digest(a) -> str:
+    """sha256 of an array's dtype, shape and bytes (np.savez's zip headers
+    carry a time, so slices are compared by their arrays)."""
+    import hashlib
+
+    import numpy as np
+
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(repr((a.dtype.str, a.shape)).encode()
+                          + a.tobytes()).hexdigest()
 
 
 def write_reference_checkpoint(params, bn_state, path: str,
@@ -830,6 +973,24 @@ def check_feed_line(what: str, text: str) -> None:
         fail(f"{what} did not print {FEED_LINE!r}")
 
 
+def graph_mode(text: str):
+    """``(halo, {loader: {bucket: batches}}, order)`` from a CLI's "graph
+    mode:" line (cli/common.py:graph_mode_line), None where it printed
+    none."""
+    import re
+
+    m = re.search(r"^graph mode: window \(halo (\d+), batches per bucket "
+                  r"(.*), order (.*)\)$", text, re.M)
+    if m is None:
+        return None
+    per = {}
+    for part in m.group(2).split(", "):
+        name, *counts = part.split(" ")
+        per[name] = {int(b): int(n) for b, n in
+                     (c.split(":") for c in counts if c != "none")}
+    return int(m.group(1)), per, m.group(3)
+
+
 def epoch_seconds(text: str):
     """Each "Training epoch" line's wall seconds."""
     return [float(ln.split("(")[1].split(" s,")[0]) for ln in
@@ -844,12 +1005,15 @@ def train_phase(work: str):
     import torch
     from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
     from deepmetv2_tpu_torch.cli import train as train_cli
+    from deepmetv2_tpu_torch.data import fetch_dataloader
     from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import (window_max,
                                                               window_max_bwd)
 
     ck = os.path.join(work, "train")
     base = ["--synthetic", "2000", "--batch_size", str(TRAIN_B), "--ckpts", ck]
     steps, evals, convs = 200, 50, 2          # per epoch: 1600 / 8, 400 / 8
+    lds = fetch_dataloader(events=smoke_events(2000), batch_size=TRAIN_B)
+    per = {k: lds[k].batches_per_bucket() for k in ("train", "test")}
     fwd = bwd = 0
     for argv, epochs in ((["--epochs", "2"], 2),
                          (["--epochs", "3", "--restore_file", "last"], 1)):
@@ -869,8 +1033,10 @@ def train_phase(work: str):
             epoch_seconds=epoch_seconds(text), log=lines)
         if rc != 0:
             fail(f"train CLI {argv} exited {rc}")
-        if f"graph mode: window (halo {TRAIN_HALO}, order cell)" not in text:
-            fail(f"train CLI did not print halo {TRAIN_HALO}, order cell")
+        gm = graph_mode(text)
+        if gm != (TRAIN_HALO, per, "cell"):
+            fail(f"train CLI's graph mode line {gm} is not halo "
+                 f"{TRAIN_HALO}, {per}, order cell")
         check_feed_line("train CLI", text)
         want_f = epochs * (steps * convs + evals * convs)
         want_b = epochs * steps * convs
@@ -3798,8 +3964,6 @@ def mesh_cli_phase(work: str) -> dict:
     feed lines, each rank's exact window launches (the overlap or serial
     schedule of each batch's shard), the artifacts, and best.ckpt
     re-evaluated by the evaluate CLI within REEVAL_RTOL."""
-    import re
-
     from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
     from deepmetv2_tpu_torch.data import fetch_dataloader
 
@@ -3815,8 +3979,10 @@ def mesh_cli_phase(work: str) -> dict:
     if r.returncode != 0:
         fail(f"train CLI --mesh 1x2 exited {r.returncode}:\n"
              f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    halo = int(re.search(r"graph mode: window \(halo (\d+), order eta\)",
-                         r.stdout).group(1))
+    gm = graph_mode(r.stdout)
+    if gm is None or gm[2] != "eta":
+        fail(f"train CLI --mesh 1x2 printed graph mode {gm}, not order eta")
+    halo = gm[0]
     counts = json.loads([ln for ln in lines if ln.startswith(
         "launches by rank:")][0].split(":", 1)[1])
     ld = fetch_dataloader(events=smoke_events(MESH_CLI_EVENTS),
@@ -3856,6 +4022,364 @@ def mesh_cli_phase(work: str) -> dict:
              f"not within {REEVAL_RTOL} of its metrics_val_best.json {best}")
     return dict(fwd=sum(c["window_max"] for c in counts),
                 bwd=sum(c["window_max_bwd"] for c in counts))
+
+
+def etl_make_data(work: str) -> str:
+    """(a) the chunks of ETL_CHUNKS through the port's ETL CLI, run as a
+    user runs it (a subprocess per mode); every slice's name and the
+    digests of its arrays against GOLDEN_ETL_DIGESTS.  Returns the data
+    directory (slices under raw/)."""
+    import pickle
+
+    import numpy as np
+
+    d = os.path.join(work, "etl")
+    data = os.path.join(d, "data")
+    os.makedirs(d)
+    t = time.perf_counter()
+    paths = {"dytt": [], "znunu": []}
+    for i, (mode, n) in enumerate(ETL_CHUNKS):
+        path = os.path.join(d, f"chunk{i}.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(etl_chunk(ETL_SEED + i, n, mode == "dytt"), f)
+        paths[mode].append(path)
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for mode, inputs in paths.items():
+        r = subprocess.run(
+            [sys.executable, "-m", "deepmetv2_tpu_torch.etl.generate_npz",
+             "--mode", mode, "--input", *inputs, "--out",
+             os.path.join(data, "raw"), "--dataset", mode],
+            cwd=HERE, capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            fail(f"ETL CLI --mode {mode} exited {r.returncode}:\n"
+                 f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+    etl_s = time.perf_counter() - t
+    got = {}
+    for name in sorted(os.listdir(os.path.join(data, "raw"))):
+        with np.load(os.path.join(data, "raw", name)) as z:
+            got[name] = (etl_array_digest(z["x"]), etl_array_digest(z["y"]))
+    say("etl_data", step="etl", numpy=np.__version__, chunks=ETL_CHUNKS,
+        pf_per_event=ETL_PF, slices=list(got), chunk_seconds=gen_s,
+        etl_seconds=etl_s,
+        digests_equal={k: got.get(k) == v
+                       for k, v in GOLDEN_ETL_DIGESTS.items()})
+    if got != GOLDEN_ETL_DIGESTS:
+        fail(f"the ETL's slices {got} are not GOLDEN_ETL_DIGESTS")
+    return data
+
+
+def etl_host_seconds(data: str) -> dict:
+    """The train CLI's host work on the ETL'd slices: collating the train
+    split's batches, collating and cell-sorting them, and sizing the halo
+    on the sorted batches, with the seconds of each and per batch."""
+    from deepmetv2_tpu_torch.data import fetch_dataloader
+
+    kw = dict(data_dir=data, batch_size=TRAIN_B)
+    t = time.perf_counter()
+    plain = fetch_dataloader(**kw)["train"]
+    n = len(list(plain))
+    collate_s = time.perf_counter() - t
+    ld = fetch_dataloader(presort_eta=True, presort_mode="cell", **kw)
+    t = time.perf_counter()
+    list(ld["train"])
+    sorted_s = time.perf_counter() - t
+    with contextlib.redirect_stdout(io.StringIO()):
+        t = time.perf_counter()
+        ld["train"].required_halo(R)
+        halo_s = time.perf_counter() - t
+    return {"batches": n, "buckets": ld["train"].batches_per_bucket(),
+            "collate_s": collate_s, "collate_cell_sort_s": sorted_s,
+            "cell_sort_s_per_batch": (sorted_s - collate_s) / n,
+            "halo_sizing_s": halo_s, "halo_sizing_s_per_batch": halo_s / n}
+
+
+def etl_train_loaders(data: str):
+    """The train CLI's cell-sorted loaders over the slices and its config
+    (halo sized on both, presorted)."""
+    import argparse
+
+    from deepmetv2_tpu_torch.cli.common import apply_graph_mode, load_run_config
+    from deepmetv2_tpu_torch.data import fetch_dataloader
+
+    lds = fetch_dataloader(data_dir=data, batch_size=TRAIN_B,
+                           presort_eta=True, presort_mode="cell")
+    cfg = load_run_config(os.path.join(HERE, "ckpts_syn"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        cfg = apply_graph_mode(cfg, argparse.Namespace(graph_mode="window"),
+                               lds["train"].dataset, presorted=True,
+                               loaders=[lds["train"], lds["test"]])
+    if cfg.graph.window_halo != GOLDEN_ETL_TRAIN_HALO:
+        fail(f"the train CLI's halo on the ETL'd slices is "
+             f"{cfg.graph.window_halo}, not {GOLDEN_ETL_TRAIN_HALO}")
+    return lds, cfg
+
+
+def etl_kernel_phase(device, lds, cfg):
+    """(b) window_max_fwd and window_max_bwd on the largest cell-sorted
+    train batch of the ETL'd slices (N=8192, the train CLI's halo),
+    bitwise against their plain versions on every row, padded rows -inf /
+    0; each kernel's time, the plain version's, its bound and the chunks
+    the prune keeps.  Returns the batch on the device."""
+    import numpy as np
+    import torch
+    from deepmetv2_tpu_torch.data import to_device
+    from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import (window_max,
+                                                              window_max_bwd)
+    from deepmetv2_tpu_torch.ops.window import (padded_pos, padded_rows,
+                                                window_max_bwd_torch,
+                                                window_max_torch)
+    from deepmetv2_tpu_torch.train.step import window_graph
+
+    halo, r2, H = cfg.graph.window_halo, R ** 2, cfg.model.hidden_dim
+    host = max(lds["train"], key=lambda b: (b.max_nodes, int(b.mask.sum())))
+    batch = to_device(host, device)
+    B, N = batch.mask.shape
+    if N != 8192:
+        fail(f"the largest ETL'd train batch is at N={N}, not 8192")
+    pos = padded_pos(window_graph(batch, cfg).etaphi, batch.mask)
+    real = ~padded_rows(pos)
+    rng = np.random.default_rng(13)
+    c = torch.as_tensor(rng.normal(size=(B, N, H)).astype(np.float32),
+                        device=device)
+    g = torch.as_tensor(rng.normal(size=(B, N, H)).astype(np.float32),
+                        device=device) * real[..., None]
+    m = window_max(c, pos, r2, halo)
+    mt = window_max_torch(c, pos, real, r2, halo)
+    dk = window_max_bwd(c, pos, m, g, r2, halo)
+    dt = window_max_bwd_torch(c, pos, m, g, r2, halo)
+    torch.cuda.synchronize()
+    if not bitwise_equal(m, mt):
+        fail(f"window_max at the ETL shape: {n_differ(m, mt)} entries "
+             "differ from the plain version")
+    if bool((m[~real] != float("-inf")).any()):
+        fail("window_max at the ETL shape: a padded row is not -inf")
+    if not bitwise_equal(dk, dt):
+        fail(f"window_max_bwd at the ETL shape: {n_differ(dk, dt)} entries "
+             "differ from the plain version")
+    if bool((dk[~real] != 0).any()):
+        fail("window_max_bwd at the ETL shape: a padded row is not 0")
+    fin = torch.isfinite(mt)
+    pairs, adj = window_work(pos, real, halo, r2)
+    kept, chunks, blocks = chunk_counts(pos, halo, r2)
+    out = {}
+    for name, fn, plain, reads, ops in (
+            ("window_max_fwd", lambda: window_max(c, pos, r2, halo),
+             lambda: window_max_torch(c, pos, real, r2, halo), 1,
+             6 * pairs + H * adj),
+            ("window_max_bwd",
+             lambda: window_max_bwd(c, pos, m, g, r2, halo),
+             lambda: window_max_bwd_torch(c, pos, m, g, r2, halo), 3,
+             6 * pairs + 2 * H * adj)):
+        nbytes = window_bytes(pos, H, reads)
+        bound_ms, bound_by, t_bytes, t_ops = bound(nbytes, ops)
+        out[name] = {"ms": cuda_ms(fn, 20), "plain_ms": cuda_ms(plain, 2),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bytes": nbytes, "fp32_ops": ops,
+                     "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops}
+    say("etl_data", step="kernels", cases="fwd,bwd bitwise equal",
+        shape=[B, N, H], halo=halo, real_rows=int(real.sum()),
+        max_abs_err=float((m[fin] - mt[fin]).abs().max()),
+        window_pairs=pairs, adjacent_pairs=adj, kept_chunks=kept,
+        window_chunks=chunks, blocks_with_real_rows=blocks, card=CARD, **out)
+    return batch
+
+
+def etl_evaluate_phase(work: str, data: str) -> int:
+    """(c) the evaluate CLI on the slices with ckpts_syn/best.ckpt: its
+    "graph mode:" line (the halo against GOLDEN_ETL_HALO), the loss within
+    LOSS_RTOL of GOLDEN_ETL_LOSS, the exact window launches.  Returns the
+    forward launches."""
+    import torch
+    from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
+    from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import (window_max,
+                                                              window_max_bwd)
+
+    ck = ckpt_copy(work, "etl_eval")
+    window_max.launches = window_max_bwd.launches = 0
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        loss = evaluate_cli.run(["--data", data, "--ckpts", ck])["loss"]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    gm = graph_mode(out.getvalue())
+    n_batches = sum(gm[1]["test"].values()) if gm else 0
+    rel = abs(loss - GOLDEN_ETL_LOSS) / GOLDEN_ETL_LOSS
+    say("etl_data", step="evaluate", loss=loss, golden=GOLDEN_ETL_LOSS,
+        rel_err=rel, graph_mode=gm, launches=window_max.launches,
+        bwd_launches=window_max_bwd.launches, seconds=sec)
+    if gm is None or gm[0] != GOLDEN_ETL_HALO:
+        fail(f"evaluate on the ETL'd slices sized graph mode {gm}, not halo "
+             f"{GOLDEN_ETL_HALO}")
+    if not rel <= LOSS_RTOL:
+        fail(f"evaluate on the ETL'd slices: loss {loss} is not within "
+             f"{LOSS_RTOL} of {GOLDEN_ETL_LOSS}")
+    if (window_max.launches, window_max_bwd.launches) != (2 * n_batches, 0):
+        fail(f"evaluate on the ETL'd slices launched window_max "
+             f"{window_max.launches} and its backward "
+             f"{window_max_bwd.launches} times; want {2 * n_batches}, 0")
+    return window_max.launches
+
+
+def etl_train_resume_phase(device, lds, cfg):
+    """(d) the first 10 cell-sorted train batches of the slices, 10 train
+    steps resumed from ckpts_syn/best.ckpt through the chained runner
+    (chain_batches: runs of up to 8 same-shape batches), each loss within
+    LOSS_RTOL of GOLDEN_ETL_TRAIN_LOSSES, exact launches.  Returns
+    (forward, backward) launches."""
+    import itertools
+
+    from deepmetv2_tpu_torch.data import to_device
+    from deepmetv2_tpu_torch.models.graph_met import GraphMET
+    from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import (window_max,
+                                                              window_max_bwd)
+    from deepmetv2_tpu_torch.train.chain import (chain_batches, chain_length,
+                                                 make_chained_train_step)
+    from deepmetv2_tpu_torch.train.checkpoint import restore_checkpoint
+    from deepmetv2_tpu_torch.train.step import make_optimizer
+
+    model = GraphMET(cfg.model, device=device)
+    opt = make_optimizer(cfg, model)
+    restore_checkpoint(os.path.join(HERE, "ckpts_syn", "best.ckpt"), model,
+                       opt)
+    hosts = list(itertools.islice(iter(lds["train"]),
+                                  len(GOLDEN_ETL_TRAIN_LOSSES)))
+    runner = make_chained_train_step(cfg)
+    window_max.launches = window_max_bwd.launches = 0
+    losses, chains = [], []
+    t = time.perf_counter()
+    for stacked in chain_batches(iter(hosts), cfg.train.chain_steps):
+        chains.append([chain_length(stacked), stacked.mask.shape[-1]])
+        losses += runner(model, opt, to_device(stacked, device)).tolist()
+    sec = time.perf_counter() - t
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses,
+                                               GOLDEN_ETL_TRAIN_LOSSES)]
+    n = 2 * len(hosts)
+    say("etl_data", step="train_resume", halo=cfg.graph.window_halo,
+        chains=chains, losses=losses, golden=GOLDEN_ETL_TRAIN_LOSSES,
+        rel_err=rel, max_rel_err=max(rel), launches=window_max.launches,
+        bwd_launches=window_max_bwd.launches, seconds=sec)
+    if not max(rel) <= LOSS_RTOL:
+        fail(f"resumed train losses on the ETL'd slices are not within "
+             f"{LOSS_RTOL} of the JAX package's: {losses}")
+    if (window_max.launches, window_max_bwd.launches) != (n, n):
+        fail(f"the resumed steps launched window_max {window_max.launches} "
+             f"and its backward {window_max_bwd.launches} times; want {n}")
+    return window_max.launches, window_max_bwd.launches
+
+
+def etl_train_phase(work: str, data: str, lds):
+    """(e) the train CLI on the slices for 1 epoch, chained and resident:
+    its "feed:" and "graph mode:" lines (the halo, each loader's batches
+    per bucket), the exact launches with replays, its best.ckpt
+    re-evaluated by the evaluate CLI within REEVAL_RTOL.  Returns
+    (forward, backward) launches."""
+    import torch
+    from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
+    from deepmetv2_tpu_torch.cli import train as train_cli
+    from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import (window_max,
+                                                              window_max_bwd)
+
+    per = {k: lds[k].batches_per_bucket() for k in ("train", "test")}
+    steps, evals = len(lds["train"]), len(lds["test"])
+    ck = os.path.join(work, "etl_train")
+    window_max.launches = window_max_bwd.launches = 0
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train_cli.main(["--data", data, "--batch_size", str(TRAIN_B),
+                             "--epochs", "1", "--ckpts", ck])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    text = out.getvalue()
+    gm = graph_mode(text)
+    fwd, bwd = window_max.launches, window_max_bwd.launches
+    say("etl_data", step="train", seconds=sec, graph_mode=gm,
+        fwd_launches=fwd, bwd_launches=bwd, epoch_seconds=epoch_seconds(text),
+        log=[ln for ln in text.splitlines()
+             if ln.startswith(("feed:", "Training epoch", "- Eval"))])
+    if rc != 0:
+        fail(f"train CLI on the ETL'd slices exited {rc}")
+    check_feed_line("train CLI on the ETL'd slices", text)
+    if gm != (GOLDEN_ETL_TRAIN_HALO, per, "cell"):
+        fail(f"train CLI on the ETL'd slices printed graph mode {gm}, not "
+             f"halo {GOLDEN_ETL_TRAIN_HALO}, {per}, order cell")
+    if (fwd, bwd) != (2 * (steps + evals), 2 * steps):
+        fail(f"train CLI on the ETL'd slices: launches forward {fwd}, "
+             f"backward {bwd}; want {2 * (steps + evals)}, {2 * steps}")
+    with open(os.path.join(ck, "metrics_val_best.json")) as f:
+        best = json.load(f)["loss"]
+    ev = os.path.join(work, "etl_train_eval")
+    os.makedirs(ev)
+    for f in ("config.json", "best.ckpt"):
+        shutil.copy(os.path.join(ck, f), ev)
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = evaluate_cli.run(["--data", data, "--ckpts", ev,
+                                "--batch_size", str(TRAIN_B)])["loss"]
+    rel = abs(got - best) / abs(best)
+    say("etl_data", step="train_reeval", metrics_val_best=best,
+        evaluate_cli=got, rel_err=rel)
+    if not rel <= REEVAL_RTOL:
+        fail(f"evaluate CLI gives {got} on the ETL train CLI's best.ckpt, "
+             f"not within {REEVAL_RTOL} of its metrics_val_best.json {best}")
+    return fwd, bwd
+
+
+def etl_profile_phase(device, data: str, batch, cfg) -> None:
+    """(f) one train step on the largest cell-sorted train batch and one
+    evaluation step on the first validation batch of the evaluate CLI
+    (40 events, eta order on the device, GOLDEN_ETL_HALO), both at the
+    8192 bucket: step time from CUDA events, device time and the top
+    kernels from torch.profiler, the idle share; the host's seconds for
+    collating, cell-sorting and halo sizing (etl_host_seconds)."""
+    import dataclasses
+
+    from deepmetv2_tpu_torch.data import fetch_dataloader, to_device
+    from deepmetv2_tpu_torch.models.graph_met import GraphMET
+    from deepmetv2_tpu_torch.train.checkpoint import restore_checkpoint
+    from deepmetv2_tpu_torch.train.step import (make_eval_step,
+                                                make_optimizer,
+                                                make_train_step)
+
+    model = GraphMET(cfg.model, device=device)
+    opt = make_optimizer(cfg, model)
+    restore_checkpoint(os.path.join(HERE, "ckpts_syn", "best.ckpt"), model,
+                       opt)
+    train_step = make_train_step(cfg)
+    step_ms = cuda_ms(lambda: train_step(model, opt, batch), 10)
+    dev_ms, n_k, top = step_profile(lambda: train_step(model, opt, batch), 3)
+    say("etl_data", step="profile_train", batch=list(batch.mask.shape),
+        halo=cfg.graph.window_halo, step_ms=step_ms, device_ms=dev_ms,
+        device_idle_share=1 - dev_ms / step_ms, kernels_per_step=n_k,
+        top=top, card=CARD)
+    ecfg = dataclasses.replace(cfg, graph=dataclasses.replace(
+        cfg.graph, window_halo=GOLDEN_ETL_HALO, presorted=False))
+    ebatch = to_device(next(iter(fetch_dataloader(
+        data_dir=data, batch_size=40)["test"])), device)
+    eval_step = make_eval_step(ecfg)
+    step_ms = cuda_ms(lambda: eval_step(model, ebatch), 10)
+    dev_ms, n_k, top = step_profile(lambda: eval_step(model, ebatch), 3)
+    say("etl_data", step="profile_eval", batch=list(ebatch.mask.shape),
+        halo=GOLDEN_ETL_HALO, step_ms=step_ms, device_ms=dev_ms,
+        device_idle_share=1 - dev_ms / step_ms, kernels_per_step=n_k,
+        top=top, card=CARD)
+    say("etl_data", step="profile_host", **etl_host_seconds(data))
+
+
+def etl_data_phase(device, work: str) -> dict:
+    """The real-data path at CMS-scale event sizes, (a)-(f) above; returns
+    the window kernels' launches on it (``fwd``, ``bwd``)."""
+    t = time.perf_counter()
+    data = etl_make_data(work)
+    lds, cfg = etl_train_loaders(data)
+    batch = etl_kernel_phase(device, lds, cfg)
+    fwd = etl_evaluate_phase(work, data)
+    rf, rb = etl_train_resume_phase(device, lds, cfg)
+    tf, tb = etl_train_phase(work, data, lds)
+    etl_profile_phase(device, data, batch, cfg)
+    say("etl_data", step="done", seconds=time.perf_counter() - t)
+    return {"fwd": fwd + rf + tf, "bwd": rb + tb}
 
 
 def main() -> int:
@@ -3960,6 +4484,11 @@ def main() -> int:
     # 8. main path: the train CLI
     train_fwd, train_bwd = train_phase(work)
 
+    # 8a. the real-data path: NanoAOD-shaped chunks through the ETL CLI,
+    # the window kernels at N=8192 and the data's halo, evaluate, resumed
+    # steps, the train CLI, profiles
+    etl = etl_data_phase(device, work)
+
     # 8b. neighbor_list mode: evaluate, predict, --from_torch in both modes,
     # resumed chained steps, the train CLI
     nl_loss = nl_evaluate_phase(work)
@@ -4034,12 +4563,14 @@ def main() -> int:
         "name": "window_max_fwd", "route": "cuda",
         "source": src + "window_max.cu",
         "replaces": "deepmetv2_tpu/ops/pallas/edgeconv_window.py:82",
-        "launches": eval_launches + pred_launches + train_fwd + mesh_fwd,
+        "launches": eval_launches + pred_launches + train_fwd + mesh_fwd
+        + etl["fwd"],
         "library_ms": None}, **fwd), dict({
         "name": "window_max_bwd", "route": "cuda",
         "source": src + "window_max.cu",
         "replaces": "deepmetv2_tpu/ops/pallas/edgeconv_window.py:143",
-        "launches": train_bwd + mesh_bwd, "library_ms": None}, **bwd), dict({
+        "launches": train_bwd + mesh_bwd + etl["bwd"], "library_ms": None},
+        **bwd), dict({
         "name": "window_max_fwd_bf16", "route": "cuda",
         "source": src + "window_max.cu",
         "replaces": "deepmetv2_tpu/ops/pallas/edgeconv_window.py:82",

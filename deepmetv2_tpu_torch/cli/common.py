@@ -66,6 +66,17 @@ def apply_graph_mode(cfg: Config, args, all_events, presorted: bool = False,
                                        window_halo=halo, presorted=presorted))
 
 
+def graph_mode_line(cfg: Config, order: str, **loaders) -> str:
+    """The "graph mode:" line of a window-mode run: the halo, the batches
+    of each loader (by name) per node bucket, and the row order."""
+    per = ", ".join(
+        f"{name} " + (" ".join(f"{b}:{n}" for b, n in
+                               ld.batches_per_bucket().items()) or "none")
+        for name, ld in loaders.items())
+    return (f"graph mode: window (halo {cfg.graph.window_halo}, batches per "
+            f"bucket {per}, order {order})")
+
+
 def check_from_torch(args) -> None:
     """``--from_torch`` reads GraphMETNetwork state_dicts only."""
     if args.from_torch and args.model != "graphmet":

@@ -19,11 +19,13 @@ import os.path as osp
 
 from deepmetv2_tpu_torch.cli.common import (add_common_flags,
                                             apply_graph_mode,
+                                            graph_mode_line,
                                             load_model_for_eval,
                                             load_run_config, resolve_device)
 from deepmetv2_tpu_torch.data import fetch_dataloader, synthetic_events
 from deepmetv2_tpu_torch.train.loop import evaluate
 from deepmetv2_tpu_torch.utils import artifacts
+from deepmetv2_tpu_torch.utils.cache import enable_compilation_cache
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -35,6 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
 def run(argv=None):
     """Parse ``argv``, evaluate, write the artifact; returns the metrics."""
     args = build_parser().parse_args(argv)
+    enable_compilation_cache()
     device = resolve_device(args.device)
     cfg = load_run_config(args.ckpts)
 
@@ -50,6 +53,8 @@ def run(argv=None):
                                    buckets=cfg.data.node_buckets)
     # the halo is sized on the WHOLE dataset, as the JAX CLI does
     cfg = apply_graph_mode(cfg, args, loaders["test"].dataset)
+    if cfg.graph.mode == "window":
+        print(graph_mode_line(cfg, "eta (device sort)", test=loaders["test"]))
 
     os.makedirs(args.ckpts, exist_ok=True)   # a --from_torch run's may be new
     model, eval_step = load_model_for_eval(args, cfg, args.ckpts, device)

@@ -22,10 +22,12 @@ import torch
 
 from deepmetv2_tpu_torch.cli.common import (add_common_flags,
                                             apply_graph_mode,
+                                            graph_mode_line,
                                             load_model_for_eval,
                                             load_run_config, resolve_device)
 from deepmetv2_tpu_torch.data import fetch_dataloader, synthetic_events
 from deepmetv2_tpu_torch.data.loader import device_feed
+from deepmetv2_tpu_torch.utils.cache import enable_compilation_cache
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,6 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    enable_compilation_cache()
     device = resolve_device(args.device)
     cfg = load_run_config(args.ckpts)
     if args.synthetic:
@@ -53,6 +56,8 @@ def main(argv=None) -> int:
     loader = loaders["train"]  # split 0.0 → all events, in seeded
     #                            permutation order (un-permuted below)
     cfg = apply_graph_mode(cfg, args, loader.dataset)
+    if cfg.graph.mode == "window":
+        print(graph_mode_line(cfg, "eta (device sort)", all=loader))
     model, eval_step = load_model_for_eval(args, cfg, args.ckpts, device)
 
     mets, weights, nvalids = [], [], []

@@ -50,7 +50,8 @@ import numpy as np
 import torch
 
 from deepmetv2_tpu_torch.cli.common import (apply_graph_mode,
-                                            check_from_torch, resolve_device)
+                                            check_from_torch,
+                                            graph_mode_line, resolve_device)
 from deepmetv2_tpu_torch.config import Config, DataConfig
 from deepmetv2_tpu_torch.data import fetch_dataloader, synthetic_events
 from deepmetv2_tpu_torch.models.drn import DRN
@@ -58,6 +59,7 @@ from deepmetv2_tpu_torch.models.graph_met import GraphMET
 from deepmetv2_tpu_torch.parallel import multihost
 from deepmetv2_tpu_torch.train.loop import feed_line, fit
 from deepmetv2_tpu_torch.train.step import make_optimizer
+from deepmetv2_tpu_torch.utils.cache import enable_compilation_cache
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -249,6 +251,7 @@ def run(args, device, mesh=None) -> int:
     ``device``, on a ``mesh`` rank where one is given (only rank 0 prints,
     and it prints each rank's kernel launches at the end)."""
     say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
+    enable_compilation_cache()
     shard_nodes = mesh is not None and mesh.n_node > 1
     cfg = Config(data=DataConfig(batch_size=args.batch_size))
     optim = {k: v for k, v in (("lr", args.lr),
@@ -304,8 +307,8 @@ def run(args, device, mesh=None) -> int:
         loaders=[loaders["train"], loaders["test"]] if presort else None)
     say(len(loaders["train"]), len(loaders["test"]))
     if cfg.graph.mode == "window":
-        say(f"graph mode: window (halo {cfg.graph.window_halo}, order "
-            f"{sort_mode if presort else 'eta (device sort)'})")
+        say(graph_mode_line(cfg, sort_mode if presort else "eta (device sort)",
+                            train=loaders["train"], test=loaders["test"]))
     say("device:", device,
         torch.cuda.get_device_name(device) if device.type == "cuda" else "")
     if mesh is not None:

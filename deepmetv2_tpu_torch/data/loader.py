@@ -123,6 +123,14 @@ class PaddedLoader:
     def __len__(self) -> int:
         return len(self._batches)
 
+    def batches_per_bucket(self) -> Dict[int, int]:
+        """How many of this loader's batches fall into each node bucket
+        (the bucket of the batch's largest event, as ``collate`` pads)."""
+        sizes = [max(self.dataset[int(i)][0].shape[0] for i in idx)
+                 for idx in self._batches]
+        return dict(sorted(collections.Counter(
+            bucket_for(n, self.buckets) for n in sizes).items()))
+
     def required_halo(self, r: float) -> int:
         """Smallest window halo valid for every batch this loader yields,
         in the row order it emits.  Builds the batch cache on first use."""

@@ -1,8 +1,9 @@
 """Build the package's CUDA kernels and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
-by ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<digest>.so`` in
-the checkout (the digest covers the sources and the flags, so an edit
+by ``nvcc`` for ``sm_90a`` into ``BUILD_DIR/lib<name>-<digest>.so``
+(``build/kernels/`` in the checkout unless ``utils/cache.py`` points it
+elsewhere; the digest covers the sources and the flags, so an edit
 rebuilds).  ``build()`` starts one ``nvcc`` per source at once and waits for
 all of them.  Nothing is built at import: the first call that needs a
 kernel builds it.
@@ -25,7 +26,8 @@ from pathlib import Path
 from typing import Callable, Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+BUILD_DIR = DEFAULT_BUILD_DIR     # utils/cache.py:enable_compilation_cache
 KERNELS = ("window_max", "knn_und", "edge_mlp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
