@@ -103,7 +103,7 @@ Phases, each printing one line:
      agree), train, 10 steps resumed from ckpts_syn_drn/best.ckpt at batch
      16 against the port's single-device composed steps (step 0 within
      DRN_EP_STEP0_RTOL where the graphs agree, then DRN_TRAIN_LATE_RTOL;
-     the ranks' losses equal; step times by utils/profiling.StepProfiler,
+     the ranks' losses equal; step times on the host clock,
      the last step traced by utils/profiling.trace), train_replay, every
      step's loss and model within DRN_EP_REPLAY_RTOL of the single-device
      step on the sharded step's own graphs, launches, the fused conv's
@@ -3399,7 +3399,7 @@ def mesh_drn_ep_rank(device):
     digests in the compacted labelling), then the first
     DRN_EP_RING_BATCHES batches with the ring build; (c) 10 train steps
     resumed from ckpts_syn_drn/best.ckpt at batch 16 through the mesh
-    train step (with their graph digests, a StepProfiler summary and the
+    train step (with their graph digests, their host step times and the
     last step under utils/profiling.trace), and on rank 0 the port's
     single-device steps on the same batches, on the composed graph build
     with the conv the sharded path takes (the fused conv), and on the
@@ -3525,7 +3525,7 @@ def mesh_drn_ep_rank(device):
     m_ep, opt = resumed()
     step = mesh_train_step(tcfg, "drn", mesh, shard_nodes=True)
     match, build = tdrn.handshake_matching, tdyn.knn_graph_sharded
-    timer = profiling.StepProfiler()
+    step_s = []
     trace_dir = os.path.join(HERE, "build", "smoke", "mesh",
                              f"trace_rank{mesh.rank}")
     losses, graphs, replay, states = [], [], [], []
@@ -3550,12 +3550,11 @@ def mesh_drn_ep_rank(device):
                 mock.patch.object(tdyn, "knn_graph_sharded", built), \
                 (profiling.trace(trace_dir) if last
                  else contextlib.nullcontext()) as prof:
-            with profiling.annotate("node_sharded_drn_step"):
-                timer.step_start()
-                losses.append(float(step(m_ep, opt, b)))
-                torch.cuda.synchronize()
+            t_step = time.perf_counter()
+            losses.append(float(step(m_ep, opt, b)))
+            torch.cuda.synchronize()
             if not last:            # the traced step is profiled, not timed
-                timer.step_end()
+                step_s.append(time.perf_counter() - t_step)
         graphs.append(digests(rounds))
         replay.append((lists, [r[3:] for r in rounds]))
         if mesh.rank == 0:
@@ -3564,7 +3563,10 @@ def mesh_drn_ep_rank(device):
     sec = time.perf_counter() - t
     dev_ms, n_k, top = kernel_times(prof)
     out["train"] = dict(losses=losses, graphs=np.stack(graphs), seconds=sec,
-                        step_times=timer.summary(),
+                        step_times=dict(
+                            steps=len(step_s),
+                            p50_step_ms=1e3 * float(np.median(step_s)),
+                            max_step_ms=1e3 * max(step_s)),
                         last_step_device_ms=dev_ms,
                         last_step_kernels=n_k, last_step_top=top,
                         trace=os.path.relpath(os.path.join(

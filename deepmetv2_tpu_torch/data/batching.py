@@ -13,6 +13,8 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from deepmetv2_tpu_torch.utils.profiling import annotate
+
 # Feature order after ingest (reference model/data_loader.py:70-77):
 #   continuous[0:8] = px, py, pt, eta, d0, dz, mass, puppiWeight
 #   categorical[0:3] = pdgId, charge, fromPV
@@ -69,28 +71,29 @@ def collate(
     """Pad ``(x [n_i, 11], y [T])`` events into one host EventBatch.
     ``pad_events_to`` appends empty events (``num_valid == 0``), which the
     loss and the metrics skip."""
-    assert len(events) > 0
-    n_max = max(x.shape[0] for x, _ in events)
-    cap = pad_to if pad_to is not None else bucket_for(n_max, buckets)
-    B = max(len(events), pad_events_to or 0)
-    t_dim = max(int(np.asarray(y).reshape(-1).shape[0]) for _, y in events)
+    with annotate("data.collate"):
+        assert len(events) > 0
+        n_max = max(x.shape[0] for x, _ in events)
+        cap = pad_to if pad_to is not None else bucket_for(n_max, buckets)
+        B = max(len(events), pad_events_to or 0)
+        t_dim = max(int(np.asarray(y).reshape(-1).shape[0]) for _, y in events)
 
-    x_cont = np.zeros((B, cap, CONTINUOUS_DIM), dtype=np.float32)
-    x_cat = np.zeros((B, cap, CATEGORICAL_DIM), dtype=np.int32)
-    mask = np.zeros((B, cap), dtype=bool)
-    ys = np.zeros((B, t_dim), dtype=np.float32)
-    nv = np.zeros((B,), dtype=np.int32)
+        x_cont = np.zeros((B, cap, CONTINUOUS_DIM), dtype=np.float32)
+        x_cat = np.zeros((B, cap, CATEGORICAL_DIM), dtype=np.int32)
+        mask = np.zeros((B, cap), dtype=bool)
+        ys = np.zeros((B, t_dim), dtype=np.float32)
+        nv = np.zeros((B,), dtype=np.int32)
 
-    for b, (x, y) in enumerate(events):
-        n = min(x.shape[0], cap)
-        x_cont[b, :n] = x[:n, :CONTINUOUS_DIM]
-        x_cat[b, :n] = x[:n, CONTINUOUS_DIM:NUM_FEATURES].astype(np.int32)
-        mask[b, :n] = True
-        yv = np.asarray(y, dtype=np.float32).reshape(-1)
-        ys[b, : yv.shape[0]] = yv
-        nv[b] = n
-    return EventBatch(x_cont=x_cont, x_cat=x_cat, mask=mask, y=ys,
-                      num_valid=nv)
+        for b, (x, y) in enumerate(events):
+            n = min(x.shape[0], cap)
+            x_cont[b, :n] = x[:n, :CONTINUOUS_DIM]
+            x_cat[b, :n] = x[:n, CONTINUOUS_DIM:NUM_FEATURES].astype(np.int32)
+            mask[b, :n] = True
+            yv = np.asarray(y, dtype=np.float32).reshape(-1)
+            ys[b, : yv.shape[0]] = yv
+            nv[b] = n
+        return EventBatch(x_cont=x_cont, x_cat=x_cat, mask=mask, y=ys,
+                          num_valid=nv)
 
 
 def pad_batch_events(batch: EventBatch, to: int) -> EventBatch:
@@ -109,5 +112,6 @@ def pad_batch_events(batch: EventBatch, to: int) -> EventBatch:
 
 def to_device(batch: EventBatch, device) -> EventBatch:
     """Host batch → torch tensors on ``device`` (same dtypes)."""
-    return EventBatch(*(torch.as_tensor(np.asarray(f)).to(device)
-                        for f in batch))
+    with annotate("data.to_device"):
+        return EventBatch(*(torch.as_tensor(np.asarray(f)).to(device)
+                            for f in batch))

@@ -64,6 +64,7 @@ from deepmetv2_tpu_torch.ops.graph import to_undirected
 from deepmetv2_tpu_torch.ops.segment import (batched_take, gather_neighbors,
                                              gather_neighbors_mirror)
 from deepmetv2_tpu_torch.parallel import context as pctx
+from deepmetv2_tpu_torch.utils.profiling import annotate
 
 # The DRN's default input scales (reference model/net.py:20-31), in the
 # data pipeline's feature order [px, py, pt, eta, d0, dz, mass,
@@ -281,17 +282,20 @@ def _listed_round(conv: DRNConv, h: torch.Tensor, mask: torch.Tensor,
     conv's pallas_call; the conv's BatchNorm statistics are taken in
     ``nodes.whole_axis()``, and each layout keeps its own rows
     (``nodes.local``)."""
-    nbr = to_undirected(_gather_lists(nodes, knn_fn(h, mask)),
-                        cap=cfg.und_cap)
+    with annotate("graph.knn"):
+        nbr = to_undirected(_gather_lists(nodes, knn_fn(h, mask)),
+                            cap=cfg.und_cap)
     h, mask = nodes.gather(h), nodes.gather(mask)
-    with nodes.whole_axis():
+    with annotate("model.conv"), nodes.whole_axis():
         h = _drn_edgeconv(conv, h, nbr, cfg.aggr, train, force=conv_force)
-    # the graph is discrete: no gradient through the matching's weights
-    w = normalized_cut_weights(h.detach(), nbr)
-    cluster, partner = handshake_matching(w, nbr, mask)
+    with annotate("graph.match"):
+        # the graph is discrete: no gradient through the matching's weights
+        w = normalized_cut_weights(h.detach(), nbr)
+        cluster, partner = handshake_matching(w, nbr, mask)
     if diag is not None:
         diag.setdefault("rounds", []).append((mask, nbr, cluster, partner))
-    h, mask = max_pool(h, cluster, partner, mask)
+    with annotate("graph.pool"):
+        h, mask = max_pool(h, cluster, partner, mask)
     return nodes.local(h), nodes.local(mask)
 
 
@@ -315,35 +319,43 @@ def drn_apply(model: DRN, x: torch.Tensor, mask: torch.Tensor,
     the whole axis.  ``diag``'s rounds then hold the whole axis's
     decisions."""
     cfg = model.cfg
-    h = model.inputnet(model.datanorm * x, final_act=True)
+    with annotate("model.embed"):
+        h = model.inputnet(model.datanorm * x, final_act=True)
     if knn_fn is not None:
         nodes = nodes or WholeAxis()
         for conv in model.convs:
             h, mask = _listed_round(conv, h, mask, cfg, model.training,
                                     knn_fn, nodes, conv_force, diag)
-        return model.output(global_max_pool(nodes.gather(h),
-                                            nodes.gather(mask)))
+        with annotate("model.head"):
+            return model.output(global_max_pool(nodes.gather(h),
+                                                nodes.gather(mask)))
     for r, conv in enumerate(model.convs):
-        g = build_dyn_graph(h, mask, k=cfg.k, cap=cfg.und_cap,
-                            want_mirror=cfg.mirror_gather, force=graph_force)
+        with annotate("graph.knn"):
+            g = build_dyn_graph(h, mask, k=cfg.k, cap=cfg.und_cap,
+                                want_mirror=cfg.mirror_gather,
+                                force=graph_force)
         gather = gather_neighbors
         if g.mirror is not None:
             # a symmetric list: the gather's backward is a gather too
             gather = (lambda v, n, mirror=g.mirror:
                       gather_neighbors_mirror(v, n, mirror))
-        h = _drn_edgeconv(conv, h, g.nbr, cfg.aggr, model.training, gather,
-                          conv_force)
-        cluster, partner = cut_matching(g, h, mask)
+        with annotate("model.conv"):
+            h = _drn_edgeconv(conv, h, g.nbr, cfg.aggr, model.training,
+                              gather, conv_force)
+        with annotate("graph.match"):
+            cluster, partner = cut_matching(g, h, mask)
         if diag is not None:
             diag.setdefault("rounds", []).append((mask, g.nbr, cluster,
                                                   partner))
-        h, mask = max_pool(h, cluster, partner, mask)
-        if cfg.compact_pool and r < cfg.pool_rounds - 1:
-            if diag is not None:
-                diag.setdefault("compact_dropped", []).append(
-                    compact_dropped(mask))
-            h, mask = _compact_nodes(h, mask)
-    return model.output(global_max_pool(h, mask))
+        with annotate("graph.pool"):
+            h, mask = max_pool(h, cluster, partner, mask)
+            if cfg.compact_pool and r < cfg.pool_rounds - 1:
+                if diag is not None:
+                    diag.setdefault("compact_dropped", []).append(
+                        compact_dropped(mask))
+                h, mask = _compact_nodes(h, mask)
+    with annotate("model.head"):
+        return model.output(global_max_pool(h, mask))
 
 
 def drn_net_apply(model: DRN, batch: EventBatch,

@@ -31,6 +31,7 @@ from deepmetv2_tpu_torch.models.layout import JaxLayout
 from deepmetv2_tpu_torch.nn.core import (MLP, Embedding, Linear,
                                          MaskedBatchNorm, elu)
 from deepmetv2_tpu_torch.ops.edgeconv import edgeconv
+from deepmetv2_tpu_torch.utils.profiling import annotate
 
 
 def pdg_remap(pdg: torch.Tensor, pdgs=(1, 2, 11, 13, 22, 130, 211)
@@ -80,20 +81,26 @@ class GraphMET(JaxLayout):
 
     def forward(self, batch: EventBatch, graph) -> torch.Tensor:
         x_cat = batch.x_cat
-        emb_cont = elu(self.embed_continuous(batch.x_cont))
-        emb_chrg = self.embed_charge(torch.clamp(x_cat[..., 1] + 1, 0, 2))
-        emb_pv = self.embed_pv(torch.clamp(x_cat[..., 2], 0, 7))
-        emb_pdg = self.embed_pdgid(pdg_remap(x_cat[..., 0], self.cfg.pdgs))
-        emb_cat = elu(self.embed_categorical(
-            torch.cat([emb_chrg, emb_pdg, emb_pv], dim=-1)))
-        enc = elu(self.encode_all(torch.cat([emb_cat, emb_cont], dim=-1)))
-        emb = self.bn_all(enc, batch.mask)
+        with annotate("model.embed"):
+            emb_cont = elu(self.embed_continuous(batch.x_cont))
+            emb_chrg = self.embed_charge(torch.clamp(x_cat[..., 1] + 1, 0, 2))
+            emb_pv = self.embed_pv(torch.clamp(x_cat[..., 2], 0, 7))
+            emb_pdg = self.embed_pdgid(pdg_remap(x_cat[..., 0],
+                                                 self.cfg.pdgs))
+            emb_cat = elu(self.embed_categorical(
+                torch.cat([emb_chrg, emb_pdg, emb_pv], dim=-1)))
+            enc = elu(self.encode_all(torch.cat([emb_cat, emb_cont],
+                                                dim=-1)))
+            emb = self.bn_all(enc, batch.mask)
         dtype = (torch.bfloat16 if self.cfg.compute_dtype == "bfloat16"
                  else None)
         for conv in self.convs:
-            h = edgeconv(emb, graph, conv.edge.w, conv.edge.b, "max", dtype)
-            emb = emb + conv.bn(h, batch.mask)  # residual
-        return self.output(emb).squeeze(-1)
+            with annotate("model.conv"):
+                h = edgeconv(emb, graph, conv.edge.w, conv.edge.b, "max",
+                             dtype)
+                emb = emb + conv.bn(h, batch.mask)  # residual
+        with annotate("model.head"):
+            return self.output(emb).squeeze(-1)
 
     def jax_layout(self) -> Iterator[Tuple[Tuple[Any, ...], torch.Tensor]]:
         """(JAX pytree path, tensor) for every parameter and BatchNorm

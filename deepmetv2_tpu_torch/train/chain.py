@@ -51,6 +51,7 @@ from deepmetv2_tpu_torch.ops.cuda import build
 from deepmetv2_tpu_torch.train.step import (drn_objective,
                                             graphmet_objective,
                                             make_train_step)
+from deepmetv2_tpu_torch.utils.profiling import annotate
 
 
 def stack_batches(batches: Sequence[EventBatch]) -> EventBatch:
@@ -147,7 +148,7 @@ class ChainedStep:
         main = torch.cuda.current_stream(stacked.x_cont.device)
         side = self._side_stream(stacked.x_cont.device)
         side.wait_stream(main)
-        with torch.cuda.stream(side):
+        with annotate("chain.warm_up"), torch.cuda.stream(side):
             losses = _run_chain(self.step, model, optimizer, stacked)
         main.wait_stream(side)
         return losses
@@ -158,7 +159,8 @@ class ChainedStep:
         static = EventBatch(*(torch.empty_like(f) for f in stacked))
         graph = torch.cuda.CUDAGraph()
         before = build.launch_counts()
-        with torch.cuda.graph(graph, pool=self._pool, stream=side):
+        with annotate("chain.capture"), torch.cuda.graph(
+                graph, pool=self._pool, stream=side):
             losses = _run_chain(self.step, model, optimizer, static)
         captured = {k: n - before.get(k, 0)
                     for k, n in build.launch_counts().items()
@@ -167,12 +169,13 @@ class ChainedStep:
         return _Graph(graph, static, losses, captured)
 
     def _replay(self, g: _Graph, stacked: EventBatch) -> torch.Tensor:
-        for dst, src in zip(g.static, stacked):
-            dst.copy_(src)
-        g.graph.replay()
-        build.add_launches(g.launches)
-        self.replays += 1
-        return g.losses.clone()
+        with annotate("chain.replay"):
+            for dst, src in zip(g.static, stacked):
+                dst.copy_(src)
+            g.graph.replay()
+            build.add_launches(g.launches)
+            self.replays += 1
+            return g.losses.clone()
 
 
 def mesh_train_step(cfg: Config, model: str, mesh,

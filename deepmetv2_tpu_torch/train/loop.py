@@ -36,7 +36,7 @@ from deepmetv2_tpu_torch.train.chain import (chain_batches,
                                              mesh_train_step)
 from deepmetv2_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                   save_checkpoint)
-from deepmetv2_tpu_torch.train.resident import ResidentFeed, recording
+from deepmetv2_tpu_torch.train.resident import ResidentFeed
 from deepmetv2_tpu_torch.train.schedule import ReduceLROnPlateau
 from deepmetv2_tpu_torch.train.step import (drn_objective,
                                             graphmet_objective,
@@ -46,6 +46,7 @@ from deepmetv2_tpu_torch.train.step import (drn_objective,
                                             set_learning_rate)
 from deepmetv2_tpu_torch.utils import artifacts
 from deepmetv2_tpu_torch.utils.logging import RunningAverage, StepTimer
+from deepmetv2_tpu_torch.utils.profiling import annotate
 
 
 def feed_line(cfg: Config, device, mesh=None) -> str:
@@ -70,35 +71,33 @@ def train_one_epoch(model, optimizer, train_step, feed, epoch: int, device,
     stacked into chains of up to ``chain`` (then ``train_step`` is a
     chained step, train/chain.py) and streamed through
     ``prefetch_to_device``, each through ``shard`` first on a mesh (this
-    rank's rows).  Nodes are counted from the feed's host-side ``meta``;
-    losses stay on the device, with one sync at each log line (at a chain
-    boundary), and are stacked once at the end."""
+    rank's rows).  Losses stay on the device, with one sync at each log
+    line (at a chain boundary), and are stacked once at the end."""
     losses = []
     avg = RunningAverage()
     timer = StepTimer()
     timer.start()
     if isinstance(feed, ResidentFeed):
-        it, total, meta = iter(feed), feed.n_steps, feed.meta
+        it, total = iter(feed), feed.n_steps
     else:
-        meta = []
-        stacks = recording(chain_batches(iter(feed), chain), meta, chain > 1)
+        stacks = chain_batches(iter(feed), chain)
         it = prefetch_to_device(map(shard, stacks) if shard else stacks,
                                 place=device)
         total = len(feed)
     done = 0
-    for i, batch in enumerate(it):
+    for batch in it:
         loss = train_step(model, optimizer, batch)
         losses.append(loss)
         k = loss.shape[0] if loss.ndim else 1
         done += k
-        timer.update(num_edges=0, num_nodes=meta[i][1])
         if verbose and done // log_every > (done - k) // log_every:
             avg.update(float(loss.mean()))
             print(f"  epoch {epoch} step {done}/{total} "
                   f"loss {avg():.3f} "
                   f"({done / max(timer.elapsed, 1e-9):.2f} it/s)")
-    mean_loss = (float(torch.cat([l.reshape(-1) for l in losses]).mean())
-                 if losses else float("inf"))
+    with annotate("train.epoch_end"):
+        mean_loss = (float(torch.cat([l.reshape(-1) for l in losses]).mean())
+                     if losses else float("inf"))
     if verbose:   # the float() above waited for the epoch's last step
         print(f"Training epoch: {epoch:02d}, MSE: {mean_loss:.4f} "
               f"({timer.elapsed:.2f} s, "

@@ -26,6 +26,7 @@ import numpy as np
 from deepmetv2_tpu_torch.data.batching import EventBatch, to_device
 from deepmetv2_tpu_torch.data.loader import prefetch_to_device
 from deepmetv2_tpu_torch.train.chain import chain_batches
+from deepmetv2_tpu_torch.utils.profiling import annotate
 
 
 def _nbytes(batch: EventBatch) -> int:
@@ -108,7 +109,8 @@ class ResidentFeed:
 
     def __iter__(self) -> Iterator[EventBatch]:
         if self._stacks is None and not self._streaming:
-            self._stage()
+            with annotate("feed.stage"):
+                self._stage()
         if self._streaming:
             self.meta.clear()
             yield from prefetch_to_device(

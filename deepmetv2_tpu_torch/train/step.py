@@ -27,6 +27,7 @@ from deepmetv2_tpu_torch.train.loss import (drn_loss_fn, drn_met_vector,
                                             loss_fn, met_per_event,
                                             real_event_total, weighted_met)
 from deepmetv2_tpu_torch.train.metrics import _neg_weighted_met
+from deepmetv2_tpu_torch.utils.profiling import annotate
 
 
 def make_optimizer(cfg: Config, model: torch.nn.Module,
@@ -112,7 +113,8 @@ def build_graph(batch: EventBatch, cfg: Config
                                    k=g.max_neighbors, loop=g.self_loops,
                                    wrap_axes=wrap)
     if not g.presorted:
-        batch, _ = sort_by_eta(batch)
+        with annotate("graph.sort"):
+            batch, _ = sort_by_eta(batch)
     return batch, window_graph(batch, cfg)
 
 
@@ -126,16 +128,18 @@ def _step(cfg: Config, objective: Callable) -> Callable:
 
     def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                    batch: EventBatch) -> torch.Tensor:
-        model.train()
-        # gradients start from None: under capture, backward allocates them
-        # in the graph's own memory, so every replayed step starts from zero
-        optimizer.zero_grad(set_to_none=True)
-        loss = objective(model, batch)
-        loss.backward()
-        if clip is not None:
-            clip_by_global_norm(model.parameters(), clip)
-        optimizer.step()
-        return loss.detach()
+        with annotate("step.train"):
+            model.train()
+            # gradients start from None: under capture, backward allocates
+            # them in the graph's own memory, so every replayed step starts
+            # from zero
+            optimizer.zero_grad(set_to_none=True)
+            loss = objective(model, batch)
+            loss.backward()
+            if clip is not None:
+                clip_by_global_norm(model.parameters(), clip)
+            optimizer.step()
+            return loss.detach()
 
     return train_step
 
@@ -203,11 +207,13 @@ def eval_step_terms(cfg: Config) -> Callable:
             return (_neg_weighted_met(w, batch),
                     *real_event_total(met_per_event(
                         *weighted_met(w, batch), batch), batch), w)
-        batch_s, perm = sort_by_eta(batch)
+        with annotate("graph.sort"):
+            batch_s, perm = sort_by_eta(batch)
         w = net_apply(model, batch_s, window_graph(batch_s, cfg))
         total, n = real_event_total(met_per_event(
             *weighted_met(w, batch_s), batch_s), batch_s)
-        w = torch.gather(w, 1, torch.argsort(perm, dim=1))
+        with annotate("graph.unsort"):
+            w = torch.gather(w, 1, torch.argsort(perm, dim=1))
         return _neg_weighted_met(w, batch), total, n, w
 
     return terms
@@ -232,8 +238,9 @@ def make_eval_step(cfg: Config) -> Callable:
 
     @torch.no_grad()
     def eval_step(model: GraphMET, batch: EventBatch):
-        model.eval()
-        return body(model, batch)
+        with annotate("step.eval"):
+            model.eval()
+            return body(model, batch)
 
     return eval_step
 
@@ -245,9 +252,10 @@ def make_drn_eval_step(cfg: Config) -> Callable:
     in the slots of GraphMET's step."""
     @torch.no_grad()
     def eval_step(model, batch: EventBatch):
-        model.eval()
-        pred = drn_net_apply(model, batch)
-        return (drn_met_vector(pred, cfg.drn.head),
-                drn_loss_fn(pred, batch, cfg.drn.head), None)
+        with annotate("step.eval"):
+            model.eval()
+            pred = drn_net_apply(model, batch)
+            return (drn_met_vector(pred, cfg.drn.head),
+                    drn_loss_fn(pred, batch, cfg.drn.head), None)
 
     return eval_step

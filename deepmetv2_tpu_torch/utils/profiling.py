@@ -1,87 +1,98 @@
-"""Profiling and tracing (the JAX package's ``utils/profiling.py``) on
-``torch.profiler``:
+"""Profiling and tracing on ``torch.profiler``:
 
 * ``trace(logdir)``: a context manager that records the enclosed region,
   host and, where there is one, CUDA device activity, and writes it as a
   Chrome/Perfetto trace (``trace.json``) into ``logdir``;
-* ``annotate(name)``: a named region of the trace
-  (``torch.profiler.record_function``; on a CUDA device the profiler's
-  NVTX range joins it);
-* ``StepProfiler``: host-side wall-clock times per step and edge counts,
-  summarized as step-time percentiles and edges per second per device,
-  with the JAX module's keys and arithmetic.
+* ``annotate(name)``: the port's one span, a named region of the trace
+  at a layer boundary.  Spans are on only inside ``spans_on()``, which
+  ``trace`` enters: there ``annotate`` is
+  ``torch.profiler.record_function(name)``, a host event in the same
+  trace as the kernels, copies and sets it launches, on the same clock.
+  Everywhere else it returns one shared null context after one flag
+  check, and calls nothing into the profiler;
+* ``SPANS``: every name the port passes to ``annotate``, with what reads
+  it (a test keeps the two in step).
+
+A span inside a captured CUDA graph runs at capture only: a replay's
+device work shows under the span around the replay (``chain.replay``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Dict, List, Optional
 
-import numpy as np
 import torch
+
+SPANS = {
+    "data.collate": "host data: the host's padding of events into a batch "
+                    "(data/batching.py:collate)",
+    "data.to_device": "host data: the batch's host-to-device copy "
+                      "(data/batching.py:to_device); its host duration is "
+                      "the pageable copy's wait",
+    "step.eval": "step: an evaluation step of either family, entry until "
+                 "its outputs are enqueued; its host duration is the "
+                 "step's dispatch, its children split its device time",
+    "step.train": "step: one eager train step (forward, backward, clip, "
+                  "AdamW); inside a captured chain it runs at capture only",
+    "graph.sort": "graph ops: the eta sort of window mode (sort_by_eta)",
+    "graph.unsort": "graph ops: the weights' inverse-permutation gather "
+                    "back to the caller's order",
+    "graph.knn": "graph ops: the DRN round's kNN graph build (the knn_kth "
+                 "and knn_extract kernels, or the composed build)",
+    "graph.match": "graph ops: the DRN round's normalized-cut weights and "
+                   "handshake matching",
+    "graph.pool": "graph ops: the DRN round's max pooling and compaction",
+    "model.embed": "model: GraphMET's embeddings and encoder through "
+                   "bn_all; the DRN's input network",
+    "model.conv": "model: one EdgeConv block (GraphMET's window EdgeConv "
+                  "and BatchNorm, the DRN round's edge-MLP conv)",
+    "model.head": "model: the output network (the DRN's after its "
+                  "per-event max pool)",
+    "chain.warm_up": "feed: a chain's first, eager run on the capture "
+                     "stream",
+    "chain.capture": "feed: the capture of a chain into a CUDA graph",
+    "chain.replay": "feed: a chain's static-input copies, its graph "
+                    "replay and the losses' clone; the replay's device "
+                    "work falls under it",
+    "feed.stage": "feed: the resident epoch's staging on the device",
+    "train.epoch_end": "driver: the epoch's final loss stack and its "
+                       "float(), where the host waits for the epoch",
+}
+
+_NULL = contextlib.nullcontext()
+_on = False
+
+
+def annotate(name: str):
+    """A named region of the trace (``name`` in ``SPANS``), recorded only
+    inside ``spans_on()``; elsewhere the shared null context."""
+    if not _on:
+        return _NULL
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def spans_on():
+    """Turn the port's spans on for the enclosed region (for a profiler
+    that the caller runs around it)."""
+    global _on
+    was, _on = _on, True
+    try:
+        yield
+    finally:
+        _on = was
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
-    """Record the enclosed region (CPU, and CUDA when it is available) and
-    write ``<logdir>/trace.json``; yields the profiler, whose
-    ``key_averages()`` sums the region by kernel."""
+    """Record the enclosed region (CPU, and CUDA when it is available),
+    the port's spans on, and write ``<logdir>/trace.json``; yields the
+    profiler, whose ``key_averages()`` sums the region by kernel."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    with spans_on(), torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def annotate(name: str):
-    """A named region of the trace."""
-    return torch.profiler.record_function(name)
-
-
-class StepProfiler:
-    """Accumulates per-step timings and work counters; reports edges/s per
-    device and step-time percentiles.  A step's time is the host clock from
-    ``step_start`` to ``step_end``: the caller synchronizes the device
-    before ``step_end`` where the step's device time must be inside."""
-
-    def __init__(self, n_chips: int = 1):
-        self.n_chips = max(1, n_chips)
-        self._times: List[float] = []
-        self._edges: List[int] = []
-        self._t0: Optional[float] = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-    def step_start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def step_end(self, num_edges: int = 0) -> float:
-        dt = time.perf_counter() - (self._t0 or time.perf_counter())
-        self._times.append(dt)
-        self._edges.append(int(num_edges))
-        return dt
-
-    def summary(self, skip_warmup: int = 1) -> Dict[str, float]:
-        ts = np.asarray(self._times[skip_warmup:] or self._times)
-        es = np.asarray(self._edges[skip_warmup:] or self._edges)
-        total_t = float(ts.sum()) if len(ts) else 0.0
-        return {
-            "steps": int(len(ts)),
-            "mean_step_ms": float(ts.mean() * 1e3) if len(ts) else 0.0,
-            "p50_step_ms": (float(np.percentile(ts, 50) * 1e3) if len(ts)
-                            else 0.0),
-            "p99_step_ms": (float(np.percentile(ts, 99) * 1e3) if len(ts)
-                            else 0.0),
-            "edges_per_s_per_chip": (
-                float(es.sum()) / total_t / self.n_chips if total_t else 0.0),
-            "steps_per_s": float(len(ts)) / total_t if total_t else 0.0,
-        }
