@@ -23,6 +23,14 @@ Phases, each printing one line:
      the full gradient), the gradients of x, w and b through the EdgeConv
      wrapper against the plain path, and the backward's time and kept
      chunks at the training shape;
+  4b. kernel_cat_embed: GraphMET's categorical embedding op at the train
+     (8, 8192) and serving (40, 8192) shapes, D=8: its forward bitwise
+     against the plain composition, its backward within CAT_EMBED_RTOL of
+     a float64 sum and bitwise over three calls, through autograd and
+     between an eager call and a captured graph's replay, with device
+     times beside the bounds, the plain versions' and torch's index
+     backward (library_ms) and the one-hot product's, ``one_hot(idx).T @
+     grad`` per table;
   5. evaluate: the port's evaluate CLI on 2000 synthetic events with the
      committed JAX weights (ckpts_syn/best.ckpt), held to the JAX package's
      validation loss, with the kernels' launches counted;
@@ -176,8 +184,10 @@ Phases, each printing one line:
      copy of each batch and under chained resident replay: ms per step,
      device ms per step and the idle share, beside the card's name and
      power limit;
-then the whole run's seconds, a JSON line of every ported kernel and,
-last, the device JSON line.
+then the whole run's seconds, a JSON line of every ported kernel (and the
+cat_embed kernels, which replace none; their launches are those of the
+main-path phases that check them, one forward a batch and one backward a
+train step) and, last, the device JSON line.
 Any failed check exits non-zero before the last line.  Writes only under
 build/ in the checkout.
 """
@@ -837,6 +847,160 @@ def kernel_bwd_phase(device, cases, edge_args):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+CAT_EMBED_SHAPES = {"train": (8, 8192), "serve": (40, 8192)}
+CAT_EMBED_D = 8            # H/4 at H=32, the benchmark's GraphMET
+# the table gradients against a float64 sum: the largest gap over the
+# largest |gradient|, per table.  float32 sums of 65k-330k terms (a
+# thread's run, a block's tree, the blocks in double) keep ~1e-7 of it
+CAT_EMBED_RTOL = 1e-6
+
+
+def cat_embed_codes(rng, B: int, N: int, pdgs, device):
+    """x_cat [B, N, 3] int32 as the CMS cells hold them: 500-5000 real
+    candidates per event (pdgIds mostly known, of both signs, some
+    unknown; charge -1..1 with strays; fromPV -1..8), the rest padded
+    zeros; the first event's first rows hold int32's extremes."""
+    import numpy as np
+    import torch
+
+    n = rng.integers(500, 5001, B)
+    known = np.asarray(pdgs)
+    shape = (B, N)
+    pdg = np.where(rng.random(shape) < 0.9,
+                   rng.choice(known, shape) * rng.choice([-1, 1], shape),
+                   rng.integers(-3000, 3000, shape))
+    x = np.stack([pdg, rng.integers(-2, 3, shape),
+                  rng.integers(-1, 9, shape)], -1).astype(np.int32)
+    x[np.arange(N)[None, :] >= n[:, None]] = 0
+    i32 = np.iinfo(np.int32)
+    x[0, :3] = [[i32.max] * 3, [i32.min] * 3, [-211, -1, 9]]
+    return torch.as_tensor(x, device=device)
+
+
+def kernel_cat_embed_phase(device):
+    """GraphMET's categorical embedding op (csrc/cat_embed.cu) at the train
+    shape (8, 8192) and the serving shape (40, 8192), D=8: the forward
+    bitwise against the plain composition; the backward against a float64
+    sum within CAT_EMBED_RTOL, bitwise over three calls, through
+    ``CatEmbed``'s autograd and between an eager call and a captured
+    CUDA graph's replay; each kernel's device time beside its bound, the
+    plain versions' and torch's index backward (``index_put_`` with
+    accumulate, what autograd of ``w[idx]`` runs; the port never calls
+    it) as library_ms; the one-hot product per table (``one_hot(idx).T @
+    grad``, a deterministic plain alternative to the backward kernel),
+    its gap to float64 and whether three calls agree bitwise.  Returns the
+    kernel-line numbers of both."""
+    import numpy as np
+    import torch
+    from deepmetv2_tpu_torch.config import ModelConfig
+    from deepmetv2_tpu_torch.ops.cat_embed import (cat_embed_bwd_torch,
+                                                   cat_embed_indices,
+                                                   cat_embed_torch)
+    from deepmetv2_tpu_torch.ops.cuda.cat_embed import (cat_embed,
+                                                        cat_embed_bwd,
+                                                        cat_embed_fwd)
+
+    pdgs = ModelConfig.pdgs
+    rng = np.random.default_rng(5)
+    D, rows = CAT_EMBED_D, (3, len(pdgs), 8)
+    w = [torch.as_tensor(rng.normal(size=(r, D)).astype(np.float32),
+                         device=device) for r in rows]
+    lines = {}
+    for shape, (B, N) in CAT_EMBED_SHAPES.items():
+        x = cat_embed_codes(rng, B, N, pdgs, device)
+        g = torch.as_tensor(rng.normal(size=(B, N, 3 * D)).astype(np.float32),
+                            device=device)
+        out = cat_embed_fwd(x, *w, pdgs)
+        if not bitwise_equal(out, cat_embed_torch(x, *w, pdgs)):
+            fail(f"cat_embed_fwd {shape}: "
+                 f"{n_differ(out, cat_embed_torch(x, *w, pdgs))} entries "
+                 "differ from the plain version")
+        grads = [cat_embed_bwd(x, g, rows[1], pdgs) for _ in range(3)]
+        ref = cat_embed_bwd_torch(x, g.double(), rows[1], pdgs)
+        rel = max(float((k.double() - r).abs().max() / r.abs().max())
+                  for k, r in zip(grads[0], ref))
+        if not rel <= CAT_EMBED_RTOL:
+            fail(f"cat_embed_bwd {shape}: {rel} from the float64 sum")
+        if not all(bitwise_equal(a, b) for again in grads[1:]
+                   for a, b in zip(grads[0], again)):
+            fail(f"cat_embed_bwd {shape}: three calls differ")
+        leaves = [t.clone().requires_grad_(True) for t in w]
+        cat_embed(x, *leaves, pdgs).backward(g)
+        if not all(bitwise_equal(t.grad, k) for t, k in zip(leaves,
+                                                             grads[0])):
+            fail(f"cat_embed {shape}: CatEmbed's gradients are not "
+                 "cat_embed_bwd's")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            cat_embed_bwd(x, g, rows[1], pdgs)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = cat_embed_bwd(x, g, rows[1], pdgs)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(bitwise_equal(a, b) for a, b in zip(grads[0], captured)):
+            fail(f"cat_embed_bwd {shape}: the graph's replay differs from "
+                 "the eager call")
+        del graph, captured
+
+        idx = [i.reshape(-1).long() for i in cat_embed_indices(x, pdgs)]
+        parts = [g[..., t * D:(t + 1) * D].reshape(-1, D) for t in range(3)]
+
+        def library():
+            return [torch.zeros((r, D), device=device).index_put_(
+                (i,), p, accumulate=True) for r, i, p in zip(rows, idx, parts)]
+
+        def onehot():
+            return [torch.nn.functional.one_hot(i, r).to(torch.float32).T @ p
+                    for r, i, p in zip(rows, idx, parts)]
+
+        lib = library()
+        lib_rel = max(float((k.double() - r).abs().max() / r.abs().max())
+                      for k, r in zip(lib, ref))
+        oh = [onehot() for _ in range(3)]
+        oh_rel = max(float((k.double() - r).abs().max() / r.abs().max())
+                     for k, r in zip(oh[0], ref))
+        oh_repeat = all(bitwise_equal(a, b) for again in oh[1:]
+                        for a, b in zip(oh[0], again))
+        nbytes = 4 * B * N * (3 * D + 3)   # grad (or out) and x_cat once
+        bwd_bound = bound(nbytes, B * N * 3 * D)
+        fwd_bound = bound(nbytes, 0)
+        device_ms = {
+            "fwd": step_profile(lambda: cat_embed_fwd(x, *w, pdgs), 20,
+                                cpu=False)[0],
+            "bwd": step_profile(lambda: cat_embed_bwd(x, g, rows[1], pdgs),
+                                20, cpu=False)[0],
+            "fwd_plain": step_profile(lambda: cat_embed_torch(x, *w, pdgs),
+                                      5, cpu=False)[0],
+            "bwd_plain": step_profile(
+                lambda: cat_embed_bwd_torch(x, g, rows[1], pdgs), 5,
+                cpu=False)[0],
+            "library": step_profile(library, 5, cpu=False)[0],
+            "onehot": step_profile(onehot, 20, cpu=False)[0]}
+        call_ms = {
+            "fwd": cuda_ms(lambda: cat_embed_fwd(x, *w, pdgs), 50),
+            "bwd": cuda_ms(lambda: cat_embed_bwd(x, g, rows[1], pdgs), 50),
+            "onehot": cuda_ms(onehot, 50)}
+        say("kernel_cat_embed", shape=[B, N, 3 * D], real_rows=int(
+            (x != 0).any(-1).sum()), fwd="bitwise equal",
+            bwd_rel_to_f64=rel, library_rel_to_f64=lib_rel,
+            onehot_rel_to_f64=oh_rel, onehot_repeat_bitwise=oh_repeat,
+            bwd_repeat="bitwise equal (3 calls, autograd, graph replay)",
+            device_ms=device_ms, call_ms=call_ms, bytes=nbytes,
+            fwd_bound_ms=fwd_bound[0], bwd_bound_ms=bwd_bound[0],
+            bwd_bound_by=bwd_bound[1], card=CARD)
+        lines[shape] = (rel, device_ms, fwd_bound, bwd_bound)
+    rel, device_ms, fwd_bound, bwd_bound = lines["train"]
+    return ({"max_abs_err": 0.0, "ms": device_ms["fwd"],
+             "plain_ms": device_ms["fwd_plain"], "bound_ms": fwd_bound[0],
+             "bound_by": fwd_bound[1], "library_ms": None},
+            {"rel_err_f64": rel, "ms": device_ms["bwd"],
+             "plain_ms": device_ms["bwd_plain"], "bound_ms": bwd_bound[0],
+             "bound_by": bwd_bound[1], "library_ms": device_ms["library"]})
+
+
 def step_profile(step, reps: int = 5, cpu: bool = True):
     """(device ms per step, kernels per step, top kernels) of ``step``
     under torch.profiler (``cpu=False``: the device's activity only).  No
@@ -952,6 +1116,7 @@ def train_resume_phase(device) -> None:
                           presort_mode="cell")["train"]
     hosts = list(itertools.islice(iter(ld), len(GOLDEN_TRAIN_LOSSES)))
     runner = make_chained_train_step(cfg)
+    embed_counts(zero=True)
     losses = []
     for chain in (hosts[:8], hosts[8:]):
         losses += runner(model, opt, to_device(stack_batches(chain),
@@ -963,6 +1128,7 @@ def train_resume_phase(device) -> None:
     if not max(rel) <= LOSS_RTOL:
         fail(f"resumed train losses are not within {LOSS_RTOL} of the JAX "
              f"package's: {losses}")
+    check_embed_counts("train resume", len(hosts), len(hosts))
 
 
 FEED_LINE = "feed: resident, chain 8, CUDA graphs"   # the config's defaults
@@ -1018,6 +1184,7 @@ def train_phase(work: str):
     for argv, epochs in ((["--epochs", "2"], 2),
                          (["--epochs", "3", "--restore_file", "last"], 1)):
         window_max.launches = window_max_bwd.launches = 0
+        embed_counts(zero=True)
         out = io.StringIO()
         t = time.perf_counter()
         with contextlib.redirect_stdout(out):
@@ -1043,6 +1210,8 @@ def train_phase(work: str):
         if (window_max.launches, window_max_bwd.launches) != (want_f, want_b):
             fail(f"train CLI {argv}: launches forward {window_max.launches}, "
                  f"backward {window_max_bwd.launches}; want {want_f}, {want_b}")
+        check_embed_counts(f"train CLI {argv}", epochs * (steps + evals),
+                           epochs * steps)
         fwd += window_max.launches
         bwd += window_max_bwd.launches
     for f in ("loss.log", "metrics_val_best.json", "metrics_val_last.json",
@@ -2459,6 +2628,7 @@ def nl_evaluate_phase(work: str) -> float:
 
     ck = ckpt_copy(work, "nl")
     window_max.launches = 0
+    embed_counts(zero=True)
     metrics, sec, peak = peak_run(lambda: evaluate_cli.run(
         ["--synthetic", "2000", "--ckpts", ck, "--restore_file", "best",
          "--graph_mode", "neighbor_list"]))
@@ -2472,6 +2642,7 @@ def nl_evaluate_phase(work: str) -> float:
     if window_max.launches:
         fail(f"neighbor_list evaluate launched window_max "
              f"{window_max.launches} times")
+    check_embed_counts("neighbor_list evaluate", 10, 0)
     return loss
 
 
@@ -2483,6 +2654,7 @@ def nl_predict_phase(work: str) -> None:
 
     out = os.path.join(work, "pred_nl.npz")
     window_max.launches = 0
+    embed_counts(zero=True)
     _, sec, peak = peak_run(lambda: predict_cli.main(
         ["--synthetic", "2000", "--ckpts", os.path.join(work, "nl"),
          "--out", out, "--graph_mode", "neighbor_list"]))
@@ -2494,6 +2666,7 @@ def nl_predict_phase(work: str) -> None:
     if window_max.launches:
         fail(f"neighbor_list predict launched window_max "
              f"{window_max.launches} times")
+    check_embed_counts("neighbor_list predict", 50, 0)
 
 
 def from_torch_phase(work: str, window_loss: float, nl_loss: float) -> None:
@@ -2548,6 +2721,7 @@ def nl_train_resume_phase(device) -> None:
                           batch_size=TRAIN_B)["train"]
     hosts = list(itertools.islice(iter(ld), len(GOLDEN_NL_TRAIN_LOSSES)))
     runner = make_chained_train_step(cfg)
+    embed_counts(zero=True)
 
     def run():
         return [v for chain in (hosts[:8], hosts[8:]) for v in runner(
@@ -2561,6 +2735,7 @@ def nl_train_resume_phase(device) -> None:
     if cfg.graph.mode != "neighbor_list" or not max(rel) <= LOSS_RTOL:
         fail(f"neighbor_list train losses are not within {LOSS_RTOL} of the "
              f"JAX package's: {losses}")
+    check_embed_counts("neighbor_list train resume", len(hosts), len(hosts))
 
 
 def nl_train_phase(work: str) -> None:
@@ -2575,11 +2750,13 @@ def nl_train_phase(work: str) -> None:
 
     ck = os.path.join(work, "nl_train")
     window_max.launches = window_max_bwd.launches = 0
+    embed_counts(zero=True)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc, sec, peak = peak_run(lambda: train_cli.main(
             ["--synthetic", "2000", "--batch_size", str(TRAIN_B), "--ckpts",
              ck, "--epochs", "1", "--graph_mode", "neighbor_list"]))
+    embed = embed_counts()
     text = out.getvalue()
     with open(os.path.join(ck, "metrics_val_best.json")) as f:
         best = json.load(f)["loss"]
@@ -2605,6 +2782,7 @@ def nl_train_phase(work: str) -> None:
         fail(f"neighbor_list train CLI ran in another graph mode: {graph}")
     if window_max.launches or window_max_bwd.launches:
         fail("neighbor_list train CLI launched the window kernels")
+    check_embed_counts("neighbor_list train CLI", 250, 200, embed)
     if not rel <= REEVAL_RTOL:
         fail(f"evaluate CLI gives {got} on the neighbor_list train CLI's "
              f"best.ckpt, not within {REEVAL_RTOL} of {best}")
@@ -2798,6 +2976,37 @@ def check_window_counts(what: str, want: dict) -> None:
         fail(f"{what}: window kernel launches {got}, want {want}")
 
 
+# the cat_embed op's launches summed over the main-path runs that
+# check_embed_counts checked: the kernels line reports these
+EMBED_MAIN = {"cat_embed_fwd": 0, "cat_embed_bwd": 0}
+
+
+def embed_counts(zero: bool = False) -> dict:
+    """The cat_embed op's launch counts (forward, backward), set to 0
+    first with ``zero``."""
+    from deepmetv2_tpu_torch.ops.cuda import cat_embed as ce
+
+    fns = [ce.cat_embed_fwd, ce.cat_embed_bwd]
+    if zero:
+        for fn in fns:
+            fn.launches = 0
+    return {fn.__name__: fn.launches for fn in fns}
+
+
+def check_embed_counts(what: str, fwd: int, bwd: int, got=None) -> dict:
+    """Fail unless ``what`` launched the cat_embed op's forward ``fwd``
+    times (one a batch) and its backward ``bwd`` times (one a train step):
+    ``got``, a rank's counts, or else this process's since the last zero.
+    Adds them to EMBED_MAIN."""
+    got = embed_counts() if got is None else got
+    want = {"cat_embed_fwd": fwd, "cat_embed_bwd": bwd}
+    if got != want:
+        fail(f"{what}: cat_embed launches {got}, want {want}")
+    for k, n in got.items():
+        EMBED_MAIN[k] += n
+    return got
+
+
 def kernel_bf16_phase(device):
     """The bf16 instantiations of both window kernels against their plain
     versions on bf16 tensors, bitwise on every row (padded rows -inf / 0):
@@ -2928,6 +3137,7 @@ def bf16_evaluate_phase(work: str) -> int:
 
     ck = ckpt_copy(work, "bf16", "ckpts_syn_bf16")
     window_counts(zero=True)
+    embed_counts(zero=True)
     metrics, sec, peak = peak_run(lambda: evaluate_cli.run(
         ["--synthetic", "2000", "--ckpts", ck, "--restore_file", "best"]))
     loss = metrics["loss"]
@@ -2940,6 +3150,7 @@ def bf16_evaluate_phase(work: str) -> int:
         fail(f"bf16 validation loss {loss} is not within {BF16_LOSS_RTOL} "
              f"of {GOLDEN_BF16_LOSS}")
     check_window_counts("bf16 evaluate", {"window_max_bf16": 2 * 10})
+    check_embed_counts("bf16 evaluate", 10, 0)
     return 2 * 10
 
 
@@ -2973,6 +3184,7 @@ def bf16_train_resume_phase(device) -> None:
     hosts = list(itertools.islice(iter(ld), len(GOLDEN_BF16_TRAIN_LOSSES)))
     runner = make_chained_train_step(cfg)
     window_counts(zero=True)
+    embed_counts(zero=True)
 
     def run():
         return [v for chain in (hosts[:8], hosts[8:]) for v in runner(
@@ -2992,6 +3204,7 @@ def bf16_train_resume_phase(device) -> None:
              f"of the JAX package's: {losses}")
     check_window_counts("bf16 train resume", {"window_max_bf16": 20,
                                               "window_max_bwd_bf16": 20})
+    check_embed_counts("bf16 train resume", len(hosts), len(hosts))
 
 
 def bf16_train_phase(work: str):
@@ -3007,12 +3220,13 @@ def bf16_train_phase(work: str):
 
     ck = os.path.join(work, "bf16_train")
     window_counts(zero=True)
+    embed_counts(zero=True)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc, sec, peak = peak_run(lambda: train_cli.main(
             ["--synthetic", "2000", "--batch_size", str(TRAIN_B), "--ckpts",
              ck, "--epochs", "1", "--compute_dtype", "bfloat16"]))
-    launches = window_counts()
+    launches, embed = window_counts(), embed_counts()
     text = out.getvalue()
     with open(os.path.join(ck, "metrics_val_best.json")) as f:
         best = json.load(f)["loss"]
@@ -3038,6 +3252,7 @@ def bf16_train_phase(work: str):
             "window_max_bwd_bf16": steps * convs}
     if launches != dict({"window_max": 0, "window_max_bwd": 0}, **want):
         fail(f"bf16 train CLI: window launches {launches}, want {want}")
+    check_embed_counts("bf16 train CLI", steps + evals, steps, embed)
     if not rel <= REEVAL_RTOL:
         fail(f"evaluate CLI gives {got} on the bf16 train CLI's best.ckpt, "
              f"not within {REEVAL_RTOL} of {best}")
@@ -3118,6 +3333,7 @@ def mesh_train_rank(device, dims):
     want = 2 * sum(per)                       # 2 EdgeConvs a step
     losses = []
     window_counts(zero=True)
+    embed_counts(zero=True)
     t = time.perf_counter()
     for chain in (hosts[:8], hosts[8:]):
         if not chain:
@@ -3126,6 +3342,7 @@ def mesh_train_rank(device, dims):
         losses += runner(model, opt, to_device(local, device)).tolist()
     torch.cuda.synchronize()
     return dict(losses=losses, launches=window_counts(), want=want,
+                embed=embed_counts(), steps=len(hosts),
                 seconds=time.perf_counter() - t, mesh=mesh.describe())
 
 
@@ -3206,12 +3423,14 @@ def mesh_eval_rank(device):
         payload["params"], payload["bn_state"])
     step, _ = make_sharded_eval(cfg, mesh)
     window_counts(zero=True)
+    embed_counts(zero=True)
     t = time.perf_counter()
     metrics, _ = evaluate(model, step, ld, cfg, device, verbose=False,
                           pad=eval_padding(mesh))
     torch.cuda.synchronize()
     return dict(loss=metrics["loss"], launches=window_counts(),
-                want=2 * len(ld), seconds=time.perf_counter() - t)
+                want=2 * len(ld), batches=len(ld), embed=embed_counts(),
+                seconds=time.perf_counter() - t)
 
 
 def mesh_drn_eval_rank(device):
@@ -3680,6 +3899,8 @@ def mesh_phases(work: str) -> dict:
             if {k: v for k, v in x["launches"].items() if v} != want:
                 fail(f"{mesh}: rank {r} launched {x['launches']}, want "
                      f"{want}")
+            check_embed_counts(f"{mesh}: rank {r}", x["steps"], x["steps"],
+                               x["embed"])
             fwd += x["launches"]["window_max"]
             bwd += x["launches"]["window_max_bwd"]
     k = ranks[0]["ep_kernel"]
@@ -3706,6 +3927,8 @@ def mesh_phases(work: str) -> dict:
                 "window_max": e["want"]}:
             fail(f"mesh evaluate: rank {r} launched {e['launches']}, want "
                  f"{e['want']} window_max")
+        check_embed_counts(f"mesh evaluate: rank {r}", e["batches"], 0,
+                           e["embed"])
         fwd += e["launches"]["window_max"]
     d = [x["drn_eval"] for x in ranks]
     if not (d[0]["same_met"] and d[1]["same_met"]):
@@ -3939,10 +4162,11 @@ def mesh_world1_phase(device, work: str) -> dict:
             model, opt, cfg, hosts = mesh_resume_setup(device)
             step = make(cfg)
             window_counts(zero=True)
+            embed_counts(zero=True)
             losses = torch.stack([step(model, opt, to_device(h, device))
                                   for h in hosts[:3]])
             runs.append((losses, train_state(model, opt)))
-        launches = window_counts()            # the mesh run's
+        launches, embed = window_counts(), embed_counts()  # the mesh run's
     finally:
         dist.destroy_process_group()
     (la, sa), (lb, sb) = runs
@@ -3956,6 +4180,7 @@ def mesh_world1_phase(device, work: str) -> dict:
         fail(f"--mesh 1 is not bitwise the single-device step: {diff}")
     if launches["window_max"] != 6 or launches["window_max_bwd"] != 6:
         fail(f"--mesh 1 launched {launches}, want 6 of each f32 kernel")
+    check_embed_counts("--mesh 1", 3, 3, embed)
     return dict(fwd=launches["window_max"], bwd=launches["window_max_bwd"])
 
 
@@ -3964,7 +4189,8 @@ def mesh_cli_phase(work: str) -> dict:
     synthetic events, as a user starts it (it
     spawns its 2 ranks, which share this card through gloo): its mesh and
     feed lines, each rank's exact window launches (the overlap or serial
-    schedule of each batch's shard), the artifacts, and best.ckpt
+    schedule of each batch's shard) and embedding launches (one forward a
+    batch, one backward a train batch), the artifacts, and best.ckpt
     re-evaluated by the evaluate CLI within REEVAL_RTOL."""
     from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
     from deepmetv2_tpu_torch.data import fetch_dataloader
@@ -3994,7 +4220,9 @@ def mesh_cli_phase(work: str) -> dict:
     per = sum(ep_launches_per_conv(b.x_cont.shape[1], 2, halo)
               for b in ld["train"]) * convs
     want = {"window_max": per + convs * len(ld["test"]),
-            "window_max_bwd": per}
+            "window_max_bwd": per,
+            "cat_embed_fwd": len(ld["train"]) + len(ld["test"]),
+            "cat_embed_bwd": len(ld["train"])}
     say("mesh_cli", argv=cmd[3:], seconds=sec, launches_by_rank=counts,
         want=want, epoch_seconds=epoch_seconds(r.stdout), card=CARD,
         log=[ln for ln in lines if ln.startswith(
@@ -4008,6 +4236,9 @@ def mesh_cli_phase(work: str) -> dict:
         if {k: v for k, v in c.items() if v} != want:
             fail(f"train CLI --mesh 1x2: rank {rank} launched {c}, want "
                  f"{want}")
+        check_embed_counts(f"train CLI --mesh 1x2: rank {rank}",
+                           want["cat_embed_fwd"], want["cat_embed_bwd"],
+                           {k: c[k] for k in EMBED_MAIN})
     with open(os.path.join(ck, "metrics_val_best.json")) as f:
         best = json.load(f)["loss"]
     ev = os.path.join(work, "mesh_cli_eval")
@@ -4199,6 +4430,7 @@ def etl_evaluate_phase(work: str, data: str) -> int:
 
     ck = ckpt_copy(work, "etl_eval")
     window_max.launches = window_max_bwd.launches = 0
+    embed_counts(zero=True)
     out = io.StringIO()
     t = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -4221,6 +4453,7 @@ def etl_evaluate_phase(work: str, data: str) -> int:
         fail(f"evaluate on the ETL'd slices launched window_max "
              f"{window_max.launches} and its backward "
              f"{window_max_bwd.launches} times; want {2 * n_batches}, 0")
+    check_embed_counts("evaluate on the ETL'd slices", n_batches, 0)
     return window_max.launches
 
 
@@ -4249,6 +4482,7 @@ def etl_train_resume_phase(device, lds, cfg):
                                   len(GOLDEN_ETL_TRAIN_LOSSES)))
     runner = make_chained_train_step(cfg)
     window_max.launches = window_max_bwd.launches = 0
+    embed_counts(zero=True)
     losses, chains = [], []
     t = time.perf_counter()
     for stacked in chain_batches(iter(hosts), cfg.train.chain_steps):
@@ -4268,6 +4502,8 @@ def etl_train_resume_phase(device, lds, cfg):
     if (window_max.launches, window_max_bwd.launches) != (n, n):
         fail(f"the resumed steps launched window_max {window_max.launches} "
              f"and its backward {window_max_bwd.launches} times; want {n}")
+    check_embed_counts("the resumed steps on the ETL'd slices", len(hosts),
+                       len(hosts))
     return window_max.launches, window_max_bwd.launches
 
 
@@ -4287,6 +4523,7 @@ def etl_train_phase(work: str, data: str, lds):
     steps, evals = len(lds["train"]), len(lds["test"])
     ck = os.path.join(work, "etl_train")
     window_max.launches = window_max_bwd.launches = 0
+    embed_counts(zero=True)
     out = io.StringIO()
     t = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -4297,6 +4534,7 @@ def etl_train_phase(work: str, data: str, lds):
     text = out.getvalue()
     gm = graph_mode(text)
     fwd, bwd = window_max.launches, window_max_bwd.launches
+    embed = embed_counts()
     say("etl_data", step="train", seconds=sec, graph_mode=gm,
         fwd_launches=fwd, bwd_launches=bwd, epoch_seconds=epoch_seconds(text),
         log=[ln for ln in text.splitlines()
@@ -4310,6 +4548,8 @@ def etl_train_phase(work: str, data: str, lds):
     if (fwd, bwd) != (2 * (steps + evals), 2 * steps):
         fail(f"train CLI on the ETL'd slices: launches forward {fwd}, "
              f"backward {bwd}; want {2 * (steps + evals)}, {2 * steps}")
+    check_embed_counts("train CLI on the ETL'd slices", steps + evals, steps,
+                       embed)
     with open(os.path.join(ck, "metrics_val_best.json")) as f:
         best = json.load(f)["loss"]
     ev = os.path.join(work, "etl_train_eval")
@@ -4428,6 +4668,7 @@ def main() -> int:
     # 3-4. kernels against their plain versions
     cases, edge_args, fwd = kernel_phase(device)
     bwd = kernel_bwd_phase(device, cases, edge_args)
+    embed_fwd, embed_bwd = kernel_cat_embed_phase(device)
 
     # 5. main path: evaluate
     import numpy as np
@@ -4442,6 +4683,7 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     ck = ckpt_copy(work, "ckpts")
     window_max.launches = window_max_bwd.launches = 0
+    embed_counts(zero=True)
     t = time.perf_counter()
     metrics = evaluate_cli.run(["--synthetic", "2000", "--ckpts", ck,
                                 "--restore_file", "best"])
@@ -4459,6 +4701,7 @@ def main() -> int:
     if eval_launches != 2 * 10 or window_max_bwd.launches != 0:
         fail(f"evaluate launched window_max {eval_launches} times, not 20, "
              f"and its backward {window_max_bwd.launches} times, not 0")
+    check_embed_counts("evaluate", 10, 0)
     res = artifacts.load(os.path.join(ck, "best.resolutions"))
     if "MET" not in res:
         fail("best.resolutions holds no MET entry")
@@ -4466,6 +4709,7 @@ def main() -> int:
     # 6. main path: predict
     out = os.path.join(work, "pred.npz")
     window_max.launches = 0
+    embed_counts(zero=True)
     t = time.perf_counter()
     predict_cli.main(["--synthetic", "2000", "--ckpts", ck, "--out", out])
     torch.cuda.synchronize()
@@ -4477,6 +4721,7 @@ def main() -> int:
     check_predictions(z, "predict")
     if pred_launches != 2 * 50:
         fail(f"predict launched window_max {pred_launches} times, not 100")
+    check_embed_counts("predict", 50, 0)
 
     # 7. resume from the JAX checkpoint, held to the JAX losses; replayed
     # chains against eager steps
@@ -4604,7 +4849,13 @@ def main() -> int:
             "name": "window_max_fwd_pipelined", "route": "cuda",
             "source": src + "window_max.cu",
             "replaces": "scripts/window_revolver_probe.py:37",
-            "launches": probe_launches, "library_ms": None}, **probe)]}),
+            "launches": probe_launches, "library_ms": None}, **probe), dict({
+            "name": "cat_embed_fwd", "route": "cuda",
+            "source": src + "cat_embed.cu", "replaces": None,
+            "launches": EMBED_MAIN["cat_embed_fwd"]}, **embed_fwd), dict({
+            "name": "cat_embed_bwd", "route": "cuda",
+            "source": src + "cat_embed.cu", "replaces": None,
+            "launches": EMBED_MAIN["cat_embed_bwd"]}, **embed_bwd)]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,4 @@
 from deepmetv2_tpu_torch.models.graph_met import (  # noqa: F401
     GraphMET,
     net_apply,
-    pdg_remap,
 )

@@ -2,7 +2,9 @@
 ``models/graph_met.py``; reference model/graph_met_network.py:11-69 and the
 ``Net`` sigmoid wrapper, model/net.py:38-47):
 
-* embeddings of charge [3, H/4], |pdgId| [7, H/4], fromPV [8, H/4];
+* embeddings of charge [3, H/4], |pdgId| [7, H/4], fromPV [8, H/4], looked
+  up together (ops/cuda/cat_embed.py: one op, whose backward is a kernel
+  on the card);
 * continuous encoder Linear(8→H/2)+ELU, categorical encoder
   Linear(3H/4→H/2)+ELU, joint encoder Linear(H→H)+ELU, masked BatchNorm;
 * ``conv_depth`` residual blocks ``emb += BN(EdgeConv_linear(emb))``,
@@ -30,19 +32,9 @@ from deepmetv2_tpu_torch.data.batching import EventBatch
 from deepmetv2_tpu_torch.models.layout import JaxLayout
 from deepmetv2_tpu_torch.nn.core import (MLP, Embedding, Linear,
                                          MaskedBatchNorm, elu)
+from deepmetv2_tpu_torch.ops.cuda.cat_embed import cat_embed
 from deepmetv2_tpu_torch.ops.edgeconv import edgeconv
 from deepmetv2_tpu_torch.utils.profiling import annotate
-
-
-def pdg_remap(pdg: torch.Tensor, pdgs=(1, 2, 11, 13, 22, 130, 211)
-              ) -> torch.Tensor:
-    """|pdgId| ∈ {1,2,11,13,22,130,211} → {0..6}; unknown ids (padding
-    zeros included) → 0.  Compared with each id as a Python number: a
-    table tensor would be a host-to-device copy in every step, which a
-    captured CUDA graph cannot hold."""
-    a = pdg.abs()
-    matches = torch.stack([a == p for p in pdgs], dim=-1)
-    return torch.argmax(matches.to(torch.int8), dim=-1)
 
 
 class EdgeConvBlock(nn.Module):
@@ -80,15 +72,11 @@ class GraphMET(JaxLayout):
         self.output = MLP((H, H // 2, cfg.output_dim), g, d)
 
     def forward(self, batch: EventBatch, graph) -> torch.Tensor:
-        x_cat = batch.x_cat
         with annotate("model.embed"):
             emb_cont = elu(self.embed_continuous(batch.x_cont))
-            emb_chrg = self.embed_charge(torch.clamp(x_cat[..., 1] + 1, 0, 2))
-            emb_pv = self.embed_pv(torch.clamp(x_cat[..., 2], 0, 7))
-            emb_pdg = self.embed_pdgid(pdg_remap(x_cat[..., 0],
-                                                 self.cfg.pdgs))
-            emb_cat = elu(self.embed_categorical(
-                torch.cat([emb_chrg, emb_pdg, emb_pv], dim=-1)))
+            emb_cat = elu(self.embed_categorical(cat_embed(
+                batch.x_cat.contiguous(), self.embed_charge.w,
+                self.embed_pdgid.w, self.embed_pv.w, self.cfg.pdgs)))
             enc = elu(self.encode_all(torch.cat([emb_cat, emb_cont],
                                                 dim=-1)))
             emb = self.bn_all(enc, batch.mask)

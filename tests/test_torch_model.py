@@ -18,7 +18,8 @@ from deepmetv2_tpu.utils import artifacts as j_artifacts
 from deepmetv2_tpu_torch.config import Config, GraphConfig, ModelConfig
 from deepmetv2_tpu_torch.data.batching import to_device
 from deepmetv2_tpu_torch.data.synthetic import synthetic_events
-from deepmetv2_tpu_torch.models.graph_met import GraphMET, net_apply, pdg_remap
+from deepmetv2_tpu_torch.models.graph_met import GraphMET, net_apply
+from deepmetv2_tpu_torch.ops.cat_embed import pdg_remap
 from deepmetv2_tpu_torch.train.checkpoint import load_checkpoint
 from deepmetv2_tpu_torch.train.step import build_graph
 from tests.torch_threads import few_torch_threads  # noqa: F401
@@ -94,7 +95,8 @@ def test_net_apply_matches_jax_from_fresh_init(batch, train):
 
 def test_pdg_remap_and_clips_match_jax():
     pdg = np.array([[1, -2, 11, -13, 22, 130, -211, 0, 5, 999]], np.int32)
-    np.testing.assert_array_equal(pdg_remap(torch.as_tensor(pdg)).numpy(),
+    np.testing.assert_array_equal(pdg_remap(torch.as_tensor(pdg),
+                                            ModelConfig.pdgs).numpy(),
                                   np.asarray(j_pdg(jnp.asarray(pdg))))
 
 
