@@ -1,9 +1,11 @@
-"""What every entry shares: the run's readings, the port's config from a
-configuration file, the judgement of the compared numbers, the device's
+"""What every entry and family shares: the run's readings, the port's
+config from a configuration file, the judgement of the compared numbers,
+the port's kernels as ``counts/kernels/`` declares them, the device's
 housekeeping."""
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -11,6 +13,7 @@ import json
 import math
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from portbench import spec
@@ -78,14 +81,30 @@ def judge(values: Dict[str, float], limits: Dict[str, float]
             for k, v in limits.items() if k != "knn_tol"}
 
 
+@contextlib.contextmanager
+def deterministic():
+    """The plain reference's ops in a fixed order: on the card its
+    ``index_add`` and the backward of its gathers add in no fixed order
+    otherwise, so one seed would give other compared numbers run after run.
+    Only the reference runs under it, after the window; ops that have no
+    fixed-order form only warn."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
 def port_config(config: dict, **sections):
-    """The port's ``Config`` from a configuration file's sections, with
-    ``sections`` (dicts of keys) laid over them."""
+    """The port's ``Config`` from a configuration file, with ``sections``
+    (dicts of keys) laid over its sections, loaded by the port's own
+    ``Config.from_json`` (which passes every section the port declares and
+    ignores the file's other keys)."""
     from deepmetv2_tpu_torch.config import Config
 
-    raw = copy.deepcopy({k: config[k] for k in
-                         ("graph", "model", "drn", "optim", "data", "train")
-                         if k in config})
+    raw = copy.deepcopy(config)
     for key, over in sections.items():
         raw.setdefault(key, {}).update(over)
     return Config.from_json(json.dumps(raw))
@@ -125,7 +144,37 @@ def delta(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
 
 
 def kernel_patterns() -> dict:
-    return spec.load_json(spec.HERE / "counts" / "kernels.json")
+    """The port's kernels: the declarations of ``counts/kernels/`` (one
+    file per kernel source of the port, ``csrc/<name>.cu``) merged by file
+    name."""
+    files = sorted((spec.HERE / "counts" / "kernels").glob("*.json"))
+    return merge_kernels([spec.load_json(p) for p in files])
+
+
+def merge_kernels(declared: List[dict]) -> dict:
+    """``port``: the alternation of the declarations' ``port`` patterns
+    (the kernels ``kernel_roofline`` sums); ``per_wrapper``:
+    every declaration's map of a launch-counting wrapper to its kernel's
+    pattern (``tracing.coverage``).  A wrapper declared twice is an
+    error."""
+    per: Dict[str, str] = {}
+    for d in declared:
+        twice = set(per) & set(d["per_wrapper"])
+        if twice:
+            raise ValueError(f"wrappers declared twice: {sorted(twice)}")
+        per.update(d["per_wrapper"])
+    return {"port": "|".join(d["port"] for d in declared), "per_wrapper": per}
+
+
+def met_rel(port: np.ndarray, ref: np.ndarray) -> float:
+    """The largest gap of an event's MET vector, over the larger of its
+    reference length and the median event's."""
+    port, ref = np.asarray(port, np.float64), np.asarray(ref, np.float64)
+    size = np.hypot(ref[:, 0], ref[:, 1])
+    scale = np.maximum(size, np.median(size))
+    gap = np.hypot(*(port - ref).T)
+    bad = ~np.isfinite(gap)
+    return float("inf") if bad.any() else float((gap / scale).max())
 
 
 def rel_gap(a: float, b: float) -> float:

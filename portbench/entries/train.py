@@ -10,14 +10,25 @@ buffers are set back to the seed's and AdamW's state to its start, in
 place (the graphs hold those tensors), and a third epoch runs by replays
 alone.  Its first chains, up to ``check_steps`` steps or a few more, are
 the ones the check judges: their steps' losses, and the parameters and
-AdamW's first moment after them, as the window's own call leaves them.  The check also reads the first eager step of the first
-epoch (the same batch, from the same state): the first gradient as AdamW
-holds it after one step (its first moment over 1 - beta1) and the
-parameters after it, read by an optimizer hook that removes itself after
-that step and refuses to run inside a graph capture.  The reference
-follows the first chain's steps from the seed's weights.
+AdamW's first moment after them, as the window's own call leaves them.
+The check also reads the first eager step of the first epoch (the same
+batch, from the same state): the first gradient as AdamW holds it after
+one step (its first moment over 1 - beta1) and the parameters after it,
+read by an optimizer hook that removes itself after that step and refuses
+to run inside a graph capture.  The reference follows the first chain's
+steps from the seed's weights.
 
 A ``--trace 1`` run traces ``trace_epochs`` epochs instead of the window.
+
+The model comes from the configuration's family
+(``families/<family>.py``), whose class ``Train(run, events)`` has
+``model``, ``loader``, ``cfg`` (the port's ``Config``), ``leaves`` (the
+seed's parameters and buffers), ``name`` (the port's model for
+``make_chained_train_step``), ``watch(n)`` (record what the reference
+needs of the first ``n`` forwards), ``reference(batches)`` (the
+reference's ``Steps`` over the checked batches, and the control's in the
+program's place or None) and ``counts(host_batches)`` (one epoch's kernel
+bound in seconds and the model's operations).
 """
 
 from __future__ import annotations
@@ -29,12 +40,12 @@ from typing import Dict
 import numpy as np
 import torch
 
-from portbench import cell, record, tracing, weights
-from portbench.counts import edge_mlp, knn, peaks, window
-from portbench.counts import model as model_counts
+from portbench import cell, spec, tracing
 from portbench.gen import events as gen
-from portbench.reference import graphmet as ref
-from portbench.reference.common import Precision, Steps
+from portbench.reference.common import Steps
+
+ROLE = "Train"      # the class of the family this entry drives
+
 
 
 class FirstStep:
@@ -77,152 +88,6 @@ def restart(model: torch.nn.Module, opt: torch.optim.Optimizer,
                     v.zero_()
 
 
-class GraphMETTrain:
-    """GraphMET: batches presorted on the host in cell order (the halo
-    sized from them, as the train CLI does), the window kernels."""
-
-    def __init__(self, r: cell.Run, events):
-        from deepmetv2_tpu_torch.data.loader import METDataset, PaddedLoader
-        from deepmetv2_tpu_torch.models.graph_met import GraphMET
-
-        self.r, cfgj, t = r, r.spec.config, r.spec.traffic
-        self.radius = float(cfgj["graph"]["delta_r"])
-        self.loader = PaddedLoader(
-            METDataset(events=events), np.arange(len(events)),
-            int(t["batch"]), tuple(cfgj["data"]["node_buckets"]),
-            "sequential", presort_eta=True, presort_mode=t["presort"],
-            presort_r=self.radius)
-        halo = cell.round_halo(self.loader.required_halo(self.radius))
-        over = {"compute_dtype": "bfloat16"} if r.control else {}
-        self.cfg = cell.port_config(cfgj, graph={
-            "mode": "window", "window_halo": halo, "presorted": True},
-            model=over)
-        self.leaves = weights.make(weights.graphmet_spec(cfgj["model"]),
-                                   r.seed, r.device)
-        self.model = GraphMET(self.cfg.model, device=r.device)
-        self.model.load_state_dict(self.leaves)
-        self.leaves = weights.clone(self.leaves)
-        self.name = "graphmet"
-
-    def watch(self, n: int) -> None:
-        """Nothing to record: GraphMET's graph is the radius graph, which
-        the reference builds itself."""
-
-    def reference(self, batches):
-        """The reference's steps (the control is the port's own bfloat16
-        path, so none in its place)."""
-        check = [ref.make_batch(evs, self.radius, self.r.device)
-                 for evs in batches]
-        return ref.train_steps(self.leaves, check, self.r.spec.config), None
-
-    def counts(self, host_batches) -> tuple:
-        cfgj = self.r.spec.config
-        H = int(cfgj["model"]["hidden_dim"])
-        depth = int(cfgj["model"]["conv_depth"])
-        bound = ops = 0.0
-        for b in host_batches:
-            mask = np.asarray(b.mask)
-            Bb, N = mask.shape
-            real = int(mask.sum())
-            edges = radius_edge_count(b, self.radius, self.r.device)
-            bound += depth * (
-                peaks.bound_s(window.nbytes(real, Bb, N, H, 1),
-                              window.fwd_ops(edges, H))
-                + peaks.bound_s(window.nbytes(real, Bb, N, H, 3),
-                                window.bwd_ops(edges, H)))
-            ops += model_counts.graphmet_ops(real, edges, H, depth, True)
-        return bound, ops
-
-
-class DRNTrain:
-    """The DRN: batches as collated, datanorm from the training events (as
-    the train CLI sets it), the kNN and edge-MLP kernels; the reference
-    follows the decisions the port's checked steps made."""
-
-    def __init__(self, r: cell.Run, events):
-        from deepmetv2_tpu_torch.data.loader import METDataset, PaddedLoader
-        from deepmetv2_tpu_torch.models.drn import DRN
-
-        self.r, cfgj, t = r, r.spec.config, r.spec.traffic
-        self.loader = PaddedLoader(
-            METDataset(events=events), np.arange(len(events)),
-            int(t["batch"]), tuple(cfgj["data"]["node_buckets"]),
-            "sequential")
-        self.cfg = cell.port_config(cfgj, data={"batch_size": int(t["batch"])})
-        self.leaves = weights.make(weights.drn_spec(cfgj["drn"]), r.seed,
-                                   r.device,
-                                   {"datanorm": weights.drn_datanorm(events)})
-        self.model = DRN(self.cfg.drn, device=r.device)
-        self.model.load_state_dict(self.leaves)
-        self.leaves = weights.clone(self.leaves)
-        self.name = "drn"
-
-    def watch(self, n: int) -> None:
-        """Record the decisions of the first ``n`` forwards, and the
-        features the first one's poolings compare (its gradient is the
-        first step's)."""
-        self.recorder = record.Recorder(self.cfg.drn.pool_rounds, n, feats=1)
-
-    def reference(self, batches):
-        """The reference's steps on the recorded decisions (and, for the
-        control, the same in TF32 in the program's place)."""
-        from portbench.reference import drn as ref_drn
-
-        rec, dev = self.recorder, self.r.device
-        rec.restore()
-        steps, decisions = [], []
-        for s, evs in enumerate(batches):
-            width = rec.width(s)
-            steps.append(([ref_drn.Event(torch.as_tensor(x, device=dev),
-                                         width) for x, _ in evs],
-                          torch.as_tensor(np.stack([y[:2] for _, y in evs]),
-                                          device=dev)))
-            decisions.append([rec.decisions(s, i, dev)
-                              for i in range(len(evs))])
-        tol = float(self.r.spec.limits["knn_tol"])
-        cfgj = self.r.spec.config
-        got = ref_drn.train_steps(self.leaves, steps, decisions, cfgj,
-                                  Precision(), tol)
-        control = (ref_drn.train_steps(self.leaves, steps, decisions, cfgj,
-                                       Precision(tf32=True), tol)
-                   if self.r.control else None)
-        return got, control
-
-    def counts(self, host_batches) -> tuple:
-        from portbench.reference import drn as ref_drn
-
-        d = self.r.spec.config["drn"]
-        H, F = int(d["hidden_dim"]), int(d["input_dim"])
-        F1, cap = 3 * H // 2, int(d["und_cap"] or 2 * int(d["k"]))
-        bound = ops = 0.0
-        for b in host_batches:
-            mask = np.asarray(b.mask)
-            Bb, N = mask.shape
-            x = np.concatenate([np.asarray(b.x_cont),
-                                np.asarray(b.x_cat, np.float32)], -1)
-            work = [ref_drn.own(self.leaves, ref_drn.Event(torch.as_tensor(
-                x[e][mask[e]], device=self.r.device), N), d)[1]
-                for e in range(Bb) if mask[e].any()]
-            ops += model_counts.drn_train_ops(work, F, H,
-                                              int(d["output_dim"]))
-            for rnd in range(len(work[0])):
-                ns = [w[rnd]["n"] for w in work]
-                E = sum(w[rnd]["edges"] for w in work)
-                Nr, n = work[0][rnd]["width"], sum(ns)
-                kops = knn.ops(ns, H)
-                nb = edge_mlp.nbytes(n, Bb, Nr, cap, H, F1, H)
-                bound += (peaks.bound_s(knn.nbytes(ns, Bb, Nr, H), kops)
-                          + peaks.bound_s(knn.nbytes(ns, Bb, Nr, H, cap), kops)
-                          + peaks.bound_s(nb, edge_mlp.kernel_ops(
-                              n, E, H, F1, H))
-                          + peaks.bound_s(2 * nb, edge_mlp.bwd_ops(
-                              n, E, H, F1, H)))
-        return bound, ops
-
-
-FAMILIES = {"graphmet": GraphMETTrain, "drn": DRNTrain}
-
-
 def run(r: cell.Run) -> cell.Outcome:
     from deepmetv2_tpu_torch.train.chain import (chain_batches, chain_length,
                                                  make_chained_train_step)
@@ -234,7 +99,7 @@ def run(r: cell.Run) -> cell.Outcome:
     reading = cell.Reading(entry="train")
     B = int(t["batch"])
     events = gen.make_events(t, r.seed)
-    fam = FAMILIES[r.spec.config["family"]](r, events)
+    fam = spec.family(r.spec.config["family"], ROLE)(r, events)
     model, loader, cfg = fam.model, fam.loader, fam.cfg
     opt = make_optimizer(cfg, model)
     chain = max(1, cfg.train.chain_steps)
@@ -330,8 +195,9 @@ def run(r: cell.Run) -> cell.Outcome:
     if r.trace:
         trace_readings(out, tl_out.get("timeline"), launches, n_epochs,
                        fam.counts(host_batches))
-    ref_steps, control = fam.reference(
-        [events[s * B:(s + 1) * B] for s in range(K)])
+    with cell.deterministic():
+        ref_steps, control = fam.reference(
+            [events[s * B:(s + 1) * B] for s in range(K)])
     if control is not None:                # the control in the port's place
         port = Steps(control.losses, f64(control.first),
                      [f64(control.after[0]), f64(control.after[-1])],
@@ -440,16 +306,3 @@ def trace_readings(out: cell.Outcome, tl, launches, n_epochs: int,
     rd.bound_s, rd.ops = counts[0] * n_epochs, counts[1] * n_epochs
     out.breakdown = {"device_ops": [list(x) for x in tl.top_ops()],
                      "idle_gaps": [list(x) for x in tl.idle_by_host()]}
-
-
-def radius_edge_count(b, radius: float, dev) -> int:
-    """Directed radius-graph pairs (self included) of a host batch's real
-    candidates."""
-    total = 0
-    x = torch.as_tensor(np.asarray(b.x_cont), device=dev)
-    for e, m in enumerate(np.asarray(b.mask)):
-        if m.any():
-            rows = x[e][torch.as_tensor(m, device=dev)]
-            total += int(ref.radius_edges(*ref.etaphi(rows),
-                                          radius)[0].numel())
-    return total

@@ -8,13 +8,13 @@ for its duration.  The benchmark's runs never plant one; its tests and
   first of each shape, which on the card runs eagerly: its capture, and
   so every replay, leaves the state as it was (on the CPU, where chains
   are loops, the same chains leave it so);
-* ``half_batch``: the loss (both families' training loss, their
-  evaluation MET) leaves out the second half of each batch's events and
-  takes its mean over the rest;
-* ``altered``: the first event of every evaluated batch gets its MET
-  made 1 % larger where the step produces it;
-* ``no_matching``: the DRN's matching pairs no node (each is its own
-  partner and cluster).
+* the faults a family's paths alone can have, each declared by its
+  family file (``families/<family>.py``, ``FAULTS``): ``half_batch`` (the
+  loss, and the evaluation MET, leave out the second half of each batch's
+  events and take the mean over the rest), ``altered`` (the first event of
+  every evaluated batch gets its MET made 1 % larger where the step
+  produces it), ``no_matching`` (the DRN's matching pairs no node).  A
+  fault is planted in every family that declares it.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+from portbench import spec
 
 
 @contextlib.contextmanager
@@ -34,19 +36,24 @@ def patched(obj, name: str, value):
         setattr(obj, name, old)
 
 
-def _first_half(batch):
+def first_half(batch):
+    """The batch with the events of its second half marked empty."""
     B = batch.num_valid.shape[0]
     keep = torch.arange(B, device=batch.num_valid.device) < (B + 1) // 2
     return batch._replace(num_valid=torch.where(
         keep, batch.num_valid, torch.zeros_like(batch.num_valid)))
 
 
+def bump(v: torch.Tensor) -> torch.Tensor:
+    """``v`` with its first row made 1 % larger."""
+    scale = torch.ones_like(v)
+    scale[0] = 1.01
+    return v * scale
+
+
 @contextlib.contextmanager
 def plant(fault: str):
     import torch.optim.adam as adam_mod
-
-    from deepmetv2_tpu_torch.train import loss as port_loss
-    from deepmetv2_tpu_torch.train import step as port_step
 
     if fault == "unchanged":
         with patched(adam_mod, "adam", lambda *a, **k: None):
@@ -66,55 +73,12 @@ def plant(fault: str):
 
         with patched(port_chain.ChainedStep, "__call__", first_only):
             yield
-    elif fault == "no_matching":
-        from deepmetv2_tpu_torch.models import drn as port_drn
-
-        def unmatched(g, h, mask, *a, **k):
-            B, N = mask.shape
-            iota = torch.arange(N, device=mask.device).expand(B, N)
-            return iota.clone(), iota.clone()
-
-        with patched(port_drn, "cut_matching", unmatched):
-            yield
-    elif fault == "half_batch":
-        loss_fn, neg_met = port_step.loss_fn, port_step._neg_weighted_met
-        drn_met = port_loss.drn_met_vector
-
-        def half_met(w, batch):
-            v = neg_met(w, batch)
-            return torch.where((_first_half(batch).num_valid > 0)[:, None],
-                               v, torch.zeros_like(v))
-
-        def half_drn(pred, head="polar"):
-            v = drn_met(pred, head)
-            keep = torch.arange(v.shape[0], device=v.device) < (
-                v.shape[0] + 1) // 2
-            return torch.where(keep[:, None], v, torch.zeros_like(v))
-
-        drn_loss = port_step.drn_loss_fn
-        with patched(port_step, "loss_fn",
-                     lambda w, b: loss_fn(w, _first_half(b))), \
-                patched(port_step, "drn_loss_fn",
-                        lambda p, b, head="polar": drn_loss(
-                            p, _first_half(b), head)), \
-                patched(port_step, "_neg_weighted_met", half_met), \
-                patched(port_loss, "drn_met_vector", half_drn), \
-                patched(port_step, "drn_met_vector", half_drn):
-            yield
-    elif fault == "altered":
-        neg_met, drn_met = port_step._neg_weighted_met, port_loss.drn_met_vector
-
-        def bump(v):
-            scale = torch.ones_like(v)
-            scale[0] = 1.01
-            return v * scale
-
-        with patched(port_step, "_neg_weighted_met",
-                     lambda w, b: bump(neg_met(w, b))), \
-                patched(port_loss, "drn_met_vector",
-                        lambda p, head="polar": bump(drn_met(p, head))), \
-                patched(port_step, "drn_met_vector",
-                        lambda p, head="polar": bump(drn_met(p, head))):
-            yield
     else:
-        raise ValueError(f"unknown fault {fault!r}")
+        planted = [mod.FAULTS[fault] for mod in spec.families()
+                   if fault in getattr(mod, "FAULTS", {})]
+        if not planted:
+            raise ValueError(f"unknown fault {fault!r}")
+        with contextlib.ExitStack() as stack:
+            for make in planted:
+                stack.enter_context(make())
+            yield

@@ -14,7 +14,7 @@ message is computed as such, and the max taken over the listed edges.
 
 A batch is its events' real candidates stacked (``Batch``), so padding
 and row order play no part.  Parameters are a dict by the port's
-state_dict names (portbench/weights.py).
+state_dict names (``families/graphmet.py:weight_spec``).
 """
 
 from __future__ import annotations

@@ -2,15 +2,16 @@
 
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-Runs the cell's entry (``entries/train.py`` or ``entries/infer.py``) on
-``deepmetv2_tpu_torch``, its configuration and traffic read from the files
-``BENCHMARK.json`` names, then judges what the timed path produced against
-the plain reference (``reference/``) and prints, as the last line of
-standard output, one JSON object: ``correct``, ``attempted``, ``failed``,
-``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
-per-layer ones), ``device``, with ``--trace 1`` ``breakdown``, and last
-``checks`` (each compared number with its limit, also the last lines of
-standard error).  Without a CUDA card it exits with code 2 and prints no
+Runs the cell's entry (``entries/<entry>.py``, the traffic file's
+``entry``) with its family (``families/<family>.py``, the configuration
+file's ``family``) on ``deepmetv2_tpu_torch``, its configuration and
+traffic read from the files ``BENCHMARK.json`` names, then judges what the
+timed path produced against the plain reference (``reference/``) and
+prints, as the last line of standard output, one JSON object:
+``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end
+metrics, or with ``--trace 1`` its per-layer ones), ``device``, with
+``--trace 1`` ``breakdown``, and last ``checks`` (each compared number
+with its limit, also the last lines of standard error).  Without a CUDA card it exits with code 2 and prints no
 result; it never falls back to the CPU.  ``--control`` runs the cell's
 lower-precision control in the program's place, which has to come out
 not correct.
@@ -58,15 +59,12 @@ def run_cell(cell_spec, seed: int, seconds: float, trace: bool, device,
     """Run one cell on ``device``; returns ``(outcome, result line)``."""
     import torch
 
-    from portbench import cell
-    from portbench.entries import infer, train
+    from portbench import cell, spec
 
-    entry = {"train": train, "infer": infer}[cell_spec.traffic["entry"]]
+    entry = spec.entry(cell_spec.traffic["entry"])
     r = cell.Run(cell_spec, seed, seconds, trace, torch.device(device), t0,
                  control)
     outcome = entry.run(r)
-    from portbench import spec
-
     metrics = spec.read_metrics(
         cell_spec.per_layer if trace else cell_spec.end_to_end,
         outcome.reading)

@@ -1,5 +1,8 @@
 """What ``BENCHMARK.json`` names, found by name: a cell's configuration,
-traffic and limits files, and the reader of each metric it reports."""
+traffic and limits files, its entry (``entries/<traffic entry>.py``), its
+family (``families/<config family>.py``), and the reader of each metric it
+reports.  Each is a file of its own, loaded by its path, so a new one
+arrives as a new file."""
 
 from __future__ import annotations
 
@@ -7,6 +10,7 @@ import dataclasses
 import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -71,14 +75,54 @@ def reader_path(metric: str) -> Path:
     return HERE / "metrics" / f"{kind}.py"
 
 
-def reader(metric: str) -> Callable:
-    """``read(reading) -> number or None`` of the metric's reader."""
-    path = reader_path(metric)
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + path.stem, path)
+def load(path: Path, prefix: str) -> ModuleType:
+    """The Python file ``path``, loaded by its path as ``prefix`` + its
+    stem."""
+    spec = importlib.util.spec_from_file_location(prefix + path.stem, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def named(kind: str, name: str) -> ModuleType:
+    """``<kind>/<name>.py`` (``kind`` ``entries`` or ``families``); a name
+    with no file stops with the names there are."""
+    path = HERE / kind / f"{name}.py"
+    if not path.is_file():
+        there = sorted(p.stem for p in (HERE / kind).glob("*.py")
+                       if p.stem != "__init__")
+        raise SystemExit(f"no {kind}/{name}.py: {kind} there are {there}")
+    return load(path, f"portbench_{kind}_")
+
+
+def entry(name: str) -> ModuleType:
+    """The entry a traffic file names: ``run(cell.Run) -> cell.Outcome``."""
+    return named("entries", name)
+
+
+def family(name: str, role: str) -> type:
+    """The class ``role`` (``Train``, ``Serve``) of the family a
+    configuration names; one that the family lacks stops with what it
+    has."""
+    mod = named("families", name)
+    if not isinstance(getattr(mod, role, None), type):
+        has = sorted(k for k, v in vars(mod).items()
+                     if isinstance(v, type) and v.__module__ == mod.__name__)
+        raise SystemExit(f"family {name!r} (families/{name}.py) has no "
+                         f"{role} class for this entry; its classes: {has}")
+    return getattr(mod, role)
+
+
+def families() -> List[ModuleType]:
+    """Every family file."""
+    return [load(p, "portbench_families_")
+            for p in sorted((HERE / "families").glob("*.py"))
+            if p.stem != "__init__"]
+
+
+def reader(metric: str) -> Callable:
+    """``read(reading) -> number or None`` of the metric's reader."""
+    return load(reader_path(metric), "portbench_metric_").read
 
 
 def read_metrics(metrics: List[dict], reading) -> Dict[str, dict]:

@@ -7,6 +7,8 @@ import numpy as np
 import torch
 
 from portbench import weights
+from portbench.families import drn as fam_drn
+from portbench.families import graphmet as fam_gm
 from portbench.faults import patched
 from portbench.entries import train as train_entry
 from portbench.gen import events as gen
@@ -50,7 +52,7 @@ def test_graphmet_eval_against_the_port():
     ev = small_events()
     halo = max(64, -(-required_halo_events(ev, 0.4) // 64) * 64)
     cfg = Config(graph=GraphConfig(mode="window", window_halo=halo))
-    leaves = weights.make(weights.graphmet_spec(
+    leaves = weights.make(fam_gm.weight_spec(
         dataclasses.asdict(cfg.model)), 3, "cpu")
     model = GraphMET(cfg.model)
     model.load_state_dict(leaves)
@@ -68,7 +70,7 @@ def test_graphmet_train_steps_against_the_port():
     halo = max(64, -(-required_halo_events(ev, 0.4) // 64) * 64)
     cfg = Config(graph=GraphConfig(mode="window", window_halo=halo))
     cfgj = dataclasses.asdict(cfg)
-    leaves = weights.make(weights.graphmet_spec(cfgj["model"]), 3, "cpu")
+    leaves = weights.make(fam_gm.weight_spec(cfgj["model"]), 3, "cpu")
     model = GraphMET(cfg.model)
     model.load_state_dict(leaves)
     opt = make_optimizer(cfg, model)
@@ -99,7 +101,7 @@ def test_restart_brings_back_the_seed_state():
     ev = small_events()
     halo = max(64, -(-required_halo_events(ev, 0.4) // 64) * 64)
     cfg = Config(graph=GraphConfig(mode="window", window_halo=halo))
-    leaves = weights.make(weights.graphmet_spec(
+    leaves = weights.make(fam_gm.weight_spec(
         dataclasses.asdict(cfg.model)), 3, "cpu")
     model = GraphMET(cfg.model)
     model.load_state_dict(leaves)
@@ -138,7 +140,7 @@ def test_drn_follows_the_port_and_finds_no_fault():
     ev = small_events(4)
     cfg = DRNConfig(head="cartesian", output_scale=100.0)
     cfgj = dataclasses.asdict(cfg)
-    leaves = weights.make(weights.drn_spec(cfgj), 3, "cpu",
+    leaves = weights.make(fam_drn.weight_spec(cfgj), 3, "cpu",
                           {"datanorm": [0.5] * 11})
     model = DRN(cfg)
     model.load_state_dict(leaves)
@@ -169,7 +171,7 @@ def test_drn_follows_the_port_and_finds_no_fault():
 def test_drn_own_graph_counts_work():
     ev = small_events(2)
     cfgj = dataclasses.asdict(DRNConfig(head="cartesian"))
-    leaves = weights.make(weights.drn_spec(cfgj), 3, "cpu",
+    leaves = weights.make(fam_drn.weight_spec(cfgj), 3, "cpu",
                           {"datanorm": [0.5] * 11})
     met, work = ref_drn.own(leaves, ref_drn.Event(
         torch.as_tensor(ev[0][0]), 256), cfgj)
@@ -210,3 +212,44 @@ def test_routed_poolings_send_the_gradient_where_the_run_did():
     far = h.clone()
     far[other, 1] = h[top, 1] + 5                 # the run's max is no max here
     assert ref_drn.routed_max(h, far, 1e-4)[1] == 1
+
+
+def test_deterministic_sets_the_mode_and_restores_it():
+    import pytest
+
+    from portbench import cell
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    with cell.deterministic():
+        assert torch.are_deterministic_algorithms_enabled()
+        assert torch.is_deterministic_algorithms_warn_only_enabled()
+    assert not torch.are_deterministic_algorithms_enabled()
+    with pytest.raises(KeyError):
+        with cell.deterministic():
+            raise KeyError("x")
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+def test_the_references_run_in_a_fixed_order_and_the_window_does_not():
+    """The checks' references (a serving cell's check, a training cell's
+    reference steps) run under ``cell.deterministic``; the port's steps
+    before them do not."""
+    from deepmetv2_tpu_torch.train import step as port_step
+    from portbench import cell
+    from portbench.tests.tiny import run_tiny
+
+    modes = {"ref": [], "port": []}
+
+    def seen(key, fn):
+        def wrapped(*a, **k):
+            modes[key].append(torch.are_deterministic_algorithms_enabled())
+            return fn(*a, **k)
+        return wrapped
+
+    with patched(cell, "met_rel", seen("ref", cell.met_rel)), \
+            patched(port_step, "loss_fn", seen("port", port_step.loss_fn)), \
+            patched(ref_gm, "train_steps", seen("ref", ref_gm.train_steps)):
+        for name in ("graphmet-infer-cms", "graphmet-train-cms"):
+            assert run_tiny(name)[1]["correct"]
+    assert modes["ref"] and all(modes["ref"])
+    assert modes["port"] and not any(modes["port"])

@@ -26,8 +26,8 @@ def test_top_level_keys_and_paths():
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_resolves(cell):
     s = spec.cell_spec(cell)
-    assert s.traffic["entry"] in ("train", "infer")
-    assert s.config["family"] in ("graphmet", "drn")
+    assert (spec.HERE / "entries" / f"{s.traffic['entry']}.py").is_file()
+    assert (spec.HERE / "families" / f"{s.config['family']}.py").is_file()
     e2e = {m["name"] for m in s.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2
     assert s.per_layer

@@ -26,7 +26,7 @@ SIZES = {
 def tiny_spec(name: str) -> spec.CellSpec:
     s = spec.cell_spec(name)
     s.traffic["candidates"] = dict(s.traffic["candidates"], min=60, max=240)
-    s.traffic.update(SIZES[name])
+    s.traffic.update(SIZES.get(name, {}))
     s.config["data"]["node_buckets"] = [128, 256]
     return s
 
