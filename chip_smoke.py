@@ -176,6 +176,23 @@ Phases, each printing one line:
      path (GOLDEN_DRN_COMPOSED_MET, _GRAPHS) by the rule of 11, no DRN
      kernel launched; one train-mode backward with mirror_gather off and
      on, within DRN_MIRROR_ATOL of the largest gradient;
+ 16c. kernel_pn_edge: ParticleNet's kernels at the cell
+     particlenet-train-cms's shapes (16 events of 500-5000 real
+     candidates at N=8192, k=16): the directed and the undirected
+     extraction and knn_kth bitwise against their plain versions at H = 2,
+     64, 128; the edge block (csrc/pn_edge.cu) at each block's widths,
+     forward, statistics and every gradient within PN_EDGE_RTOL of the
+     plain version in float64 (on the first PN_CHECK_B events; the
+     gradients with BatchNorm shifts of +-PN_SHIFT, no ReLU input near
+     zero, and printed with shifts near 0), a second
+     call and a graph replay bitwise; pn_edge_fwd's and pn_edge_bwd's
+     device times at the widest block beside their bounds and the plain
+     version's, and at half the real candidates (the work follows the real
+     edges: at most PN_HALF_MAX of the full time); pn_train: the train CLI
+     with --model particlenet, 2 epochs and a resume to 3, exact launch
+     counts of the directed kNN and the edge block (replays included),
+     finite losses falling from epoch 1 to 2, best.ckpt re-evaluated by
+     the evaluate CLI (its launches counted too);
  17. probe: the pipelined window forward (the TPU revolver probe's port)
      bitwise against window_max_fwd and the plain version at both probe
      shapes, with times;
@@ -185,9 +202,10 @@ Phases, each printing one line:
      device ms per step and the idle share, beside the card's name and
      power limit;
 then the whole run's seconds, a JSON line of every ported kernel (and the
-cat_embed kernels, which replace none; their launches are those of the
-main-path phases that check them, one forward a batch and one backward a
-train step) and, last, the device JSON line.
+cat_embed and pn_edge kernels, which replace none; their launches are
+those of the main-path phases that check them, one forward a batch (three
+for pn_edge) and one backward a train step (three)) and, last, the device
+JSON line.
 Any failed check exits non-zero before the last line.  Writes only under
 build/ in the checkout.
 """
@@ -197,6 +215,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import io
+import itertools
 import json
 import os
 import shutil
@@ -340,6 +359,36 @@ DRN_STEP_LOSS_RTOL = 2e-4
 DRN_STEP_GRAD_ATOL = 2e-3
 DRN_STEP_PARAM_ATOL = 2e-6
 DRN_STEP_BN_ATOL = 1e-5
+
+# ParticleNet at the cell particlenet-train-cms's shapes: 16 events of
+# 500-5000 real candidates at N=8192, k=16, blocks of (Cin, C) = (11, 64),
+# (64, 128), (128, 256).  The float64 check runs on the first PN_CHECK_B
+# events: the plain version keeps about four tensors of B·N·k·C doubles a
+# layer for its backward (the phase's peak reads 33 GB on the card).
+PN_B, PN_N, PN_K, PN_CHECK_B = 16, 8192, 16, 8
+PN_WIDTHS = ((11, 64), (64, 128), (128, 256))
+# the edge block's output, statistics and gradients against the plain
+# version in float64, the largest gap over the largest magnitude.  On an H100
+# 80GB HBM3 at 700 W at these shapes the kernels read up to 9.2e-6 (dw3, a
+# sum over ~200k edges) and the plain version in float32 up to 1.3e-5: five
+# times the kernels' reading.  ReLU's derivative jumps at zero: of ~10^7
+# ReLU inputs a few lie within float32's rounding of it, float32 and
+# float64 decide them differently, and each such decision moves the
+# gradients upstream of it by a whole term (on the same card with
+# BatchNorm shifts near 0: dx 5e-3 to 9e-3 of its largest, the plain
+# version in float32 alike, y 1.5e-7 to 3.5e-7).  So the gradients are held
+# to it where every BatchNorm shift is +-PN_SHIFT (by channel) and no ReLU
+# input lies within KINK of zero (counted from the kernel's own
+# pre-activations); with shifts near 0, as in training, the output and
+# statistics are held and the gradients printed beside the plain
+# version's own float32 gap.
+PN_EDGE_RTOL = 5e-5
+PN_SHIFT = 5.0
+# fwd+bwd device time at half the real candidates over the full time: the
+# work follows the real edges, so about 0.5 (0.551 in the probe,
+# PERF.md's kernel table); 20 % above a half
+PN_HALF_MAX = 0.6
+PN_TRAIN_B, PN_TRAIN_EVENTS = 16, 400   # train CLI: 20 steps, 5 evaluations
 
 # The etl_data phase: NanoAOD-shaped chunks from etl_chunk, through the
 # port's ETL CLI (two dytt chunks of 250 events and one znunu chunk of 100,
@@ -2291,6 +2340,223 @@ def drn_train_phase(work: str):
     if not rel <= REEVAL_RTOL:
         fail(f"evaluate CLI gives {got} on the DRN train CLI's best.ckpt, not "
              f"within {REEVAL_RTOL} of its metrics_val_best.json {best}")
+    return total
+
+
+def pn_edge_bound(nodes: int, E: int, B: int, N: int, k: int, cin: int,
+                  C: int):
+    """Bounds of pn_edge_fwd and pn_edge_bwd (portbench/counts/
+    particlenet.py): operations over real nodes and edges only, the first
+    layer as per-node products, 12·C²·E + 12·Cin·C·n + 3·C·E for both;
+    bytes of x, the weights, the lists at the real rows and the whole
+    output (and, backward, the cotangent and dx)."""
+    weights = 2 * cin * C + 2 * C * C
+    fwd_ops = 4 * cin * C * nodes + C * E + 4 * C * C * E
+    bwd_ops = 8 * cin * C * nodes + (8 * C * C + 2 * C) * E
+    fwd_bytes = 4 * (cin * nodes + weights + B * N * C) + 5 * nodes * k
+    bwd_bytes = (4 * (cin * nodes + C * nodes + 2 * weights + B * N * cin)
+                 + 5 * nodes * k)
+    return bound(fwd_bytes, fwd_ops), bound(bwd_bytes, bwd_ops)
+
+
+def kernel_pn_edge_phase(device):
+    """ParticleNet's kernels at the cell's shapes (PN_B, PN_N, PN_K): the
+    directed and undirected extraction bitwise against the plain versions
+    at H = 2, 64, 128; the edge block at each block's widths within
+    PN_EDGE_RTOL of the plain version in float64 (the gradients where no
+    ReLU input lies near zero, PN_SHIFT) and bitwise over two calls and a
+    graph replay; pn_edge_fwd's and pn_edge_bwd's device times
+    at the widest block beside their bounds, the plain version's (float32,
+    autograd) and at half the real candidates.  Returns the kernel-line
+    numbers of both wrappers."""
+    import torch
+    from deepmetv2_tpu_torch.ops.cuda.pn_edge import pn_edge_bwd, pn_edge_fwd
+    from deepmetv2_tpu_torch.ops.pn_edge import edge_block_torch
+    from deepmetv2_tpu_torch.probes import pn_edge_check as pnc
+
+    counts = pnc.cell_counts(PN_B)
+    knn = pnc.check_knn(device, PN_B, PN_N, counts)
+    if not all(knn.values()):
+        fail(f"kernel_pn_edge: the extraction differs from its plain "
+             f"version: {knn}")
+    checks, rels = {}, []
+    for (cin, C), shift in itertools.product(PN_WIDTHS, (PN_SHIFT, 0.0)):
+        got = pnc.check_edge(device, cin, C, PN_CHECK_B, PN_N,
+                             counts[:PN_CHECK_B], shift)
+        checks[f"{cin}x{C} shift {shift}"] = got
+        held = pnc.GAPS if shift else pnc.GAPS[:2]
+        rel = {k: got[k] for k in held}
+        if not max(rel.values()) <= PN_EDGE_RTOL:
+            fail(f"kernel_pn_edge ({cin}, {C}, shift {shift}): {rel}, not "
+                 f"within {PN_EDGE_RTOL} of the plain version in float64")
+        if shift and got["near_kink"]:
+            fail(f"kernel_pn_edge ({cin}, {C}): {got['near_kink']} ReLU "
+                 f"inputs within {pnc.KINK} of zero at shift {shift}")
+        if not (got["repeat_bitwise"] and got["replay_bitwise"]):
+            fail(f"kernel_pn_edge ({cin}, {C}): a second call or the graph "
+                 f"replay differs: {got}")
+        rels += rel.values()
+        torch.cuda.empty_cache()
+
+    cin, C = PN_WIDTHS[-1]
+    times = {}
+    for name, cs in (("full", counts), ("half", [c // 2 for c in counts])):
+        x, pts, mask = pnc.inputs(PN_B, PN_N, cs, cin, device, 7)
+        nbr = pnc.lists(pts, mask)
+        ws = pnc.weights(cin, C, device, 8)
+        gy = torch.randn((PN_B, PN_N, C), device=device) * mask[..., None]
+        cnt = torch.tensor(cs, dtype=torch.int32, device=device)
+        n_edges = nbr.mask.sum().double().reshape(1)
+        gamma, beta = ws[3], ws[4]
+
+        def fwd():
+            return pn_edge_fwd(x, nbr, cnt, n_edges, *ws[:3], gamma, beta,
+                               True)
+
+        _, z, st, inv_deg = fwd()
+
+        def bwd():
+            return pn_edge_bwd(x, nbr, cnt, n_edges, *ws[:3], gamma, z, st,
+                               inv_deg, gy)
+
+        t = {"fwd": step_profile(fwd, 5, cpu=False)[0],
+             "bwd": step_profile(bwd, 5, cpu=False)[0],
+             "real_nodes": sum(cs), "real_edges": int(n_edges)}
+        del z, st, inv_deg
+        if name == "full":
+            t["bounds"] = pn_edge_bound(sum(cs), int(n_edges), PN_B, PN_N,
+                                        PN_K, cin, C)
+            leaves = [v.clone().requires_grad_(True) for v in [x] + ws]
+            with torch.no_grad():
+                t["fwd_plain"] = step_profile(lambda: edge_block_torch(
+                    leaves[0], nbr, *leaves[1:], True), 2, cpu=False)[0]
+            y, _ = edge_block_torch(leaves[0], nbr, *leaves[1:], True)
+            t["bwd_plain"] = step_profile(lambda: torch.autograd.grad(
+                y, leaves, gy, retain_graph=True), 2, cpu=False)[0]
+            del y, leaves
+        times[name] = t
+        del x, pts, mask, nbr, gy
+        torch.cuda.empty_cache()
+    full, half = times["full"], times["half"]
+    ratio = (half["fwd"] + half["bwd"]) / (full["fwd"] + full["bwd"])
+    (fb, fby, _, _), (bb, bby, _, _) = full["bounds"]
+    say("kernel_pn_edge", shape=[PN_B, PN_N, PN_K], widths=PN_WIDTHS,
+        knn="directed and undirected bitwise at H = 2, 64, 128",
+        edge_rel_to_f64=checks, check_events=PN_CHECK_B,
+        repeat="bitwise equal (2 calls, graph replay)",
+        real_nodes=full["real_nodes"], real_edges=full["real_edges"],
+        fwd_ms=full["fwd"], bwd_ms=full["bwd"],
+        fwd_plain_ms=full["fwd_plain"], bwd_plain_ms=full["bwd_plain"],
+        fwd_bound_ms=fb, fwd_bound_by=fby, bwd_bound_ms=bb, bwd_bound_by=bby,
+        half_real_nodes=half["real_nodes"], half_fwd_ms=half["fwd"],
+        half_bwd_ms=half["bwd"], half_over_full=ratio, card=CARD)
+    if not ratio <= PN_HALF_MAX:
+        fail(f"kernel_pn_edge: half the real candidates take {ratio} of the "
+             f"full time, over {PN_HALF_MAX}: the work does not follow the "
+             "real edges")
+    rel = max(rels)
+    return ({"rel_err_f64": rel, "ms": full["fwd"],
+             "plain_ms": full["fwd_plain"], "bound_ms": fb, "bound_by": fby,
+             "library_ms": None},
+            {"rel_err_f64": rel, "ms": full["bwd"],
+             "plain_ms": full["bwd_plain"], "bound_ms": bb, "bound_by": bby,
+             "library_ms": None})
+
+
+def pn_counters():
+    from deepmetv2_tpu_torch.ops.cuda.knn_und import knn_extract, knn_kth
+    from deepmetv2_tpu_torch.ops.cuda.pn_edge import pn_edge_bwd, pn_edge_fwd
+
+    return {"knn_kth": knn_kth, "knn_extract": knn_extract,
+            "pn_edge_fwd": pn_edge_fwd, "pn_edge_bwd": pn_edge_bwd}
+
+
+def pn_train_phase(work: str) -> dict:
+    """The train CLI with --model particlenet on synthetic PN_TRAIN_EVENTS
+    at batch PN_TRAIN_B: 2 epochs and a resume to 3, chained and resident
+    (its "feed:" line checked), exact launch counts of the directed kNN and
+    the edge block (three blocks a batch, replays included), finite losses
+    falling from epoch 1 to 2, the artifacts, and best.ckpt re-evaluated by
+    the evaluate CLI within REEVAL_RTOL, its launches counted.  Returns
+    each wrapper's launches over the three runs."""
+    import numpy as np
+    import torch
+    from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
+    from deepmetv2_tpu_torch.cli import train as train_cli
+
+    ck = os.path.join(work, "pn_train")
+    base = ["--model", "particlenet", "--synthetic", str(PN_TRAIN_EVENTS),
+            "--batch_size", str(PN_TRAIN_B), "--ckpts", ck]
+    steps = int(PN_TRAIN_EVENTS * 0.8) // PN_TRAIN_B
+    evals = int(PN_TRAIN_EVENTS * 0.2) // PN_TRAIN_B
+    counters = pn_counters()
+    total = {k: 0 for k in counters}
+
+    def counted(what, run, fwd, bwd):
+        for fn in counters.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        want = {"knn_kth": 3 * fwd, "knn_extract": 3 * fwd,
+                "pn_edge_fwd": 3 * fwd, "pn_edge_bwd": 3 * bwd}
+        if launches != want:
+            fail(f"{what}: launches {launches}, want {want}")
+        for k, v in launches.items():
+            total[k] += v
+        return out, launches, time.perf_counter() - t
+
+    for argv, epochs in ((["--epochs", "2"], 2),
+                         (["--epochs", "3", "--restore_file", "last"], 1)):
+        out = io.StringIO()
+
+        def run():
+            with contextlib.redirect_stdout(out):
+                return train_cli.main(base + argv)
+
+        rc, launches, sec = counted(f"ParticleNet train CLI {argv}", run,
+                                    epochs * (steps + evals), epochs * steps)
+        text = out.getvalue()
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith(("particlenet:", "feed:", "Training epoch",
+                                   "- Eval", "Restarting"))]
+        say("pn_train", argv=argv, seconds=sec, launches=launches,
+            epoch_seconds=epoch_seconds(text), log=lines)
+        if rc != 0:
+            fail(f"ParticleNet train CLI {argv} exited {rc}")
+        check_feed_line("ParticleNet train CLI", text)
+    for f in ("loss.log", "metrics_val_best.json", "best.ckpt", "last.ckpt",
+              "config.json"):
+        if not os.path.exists(os.path.join(ck, f)):
+            fail(f"ParticleNet train CLI wrote no {f}")
+    rows = [ln.split(",") for ln in open(os.path.join(ck, "loss.log"))
+            if ln[:1].isdigit()]
+    if [r[0] for r in rows] != ["1", "2", "3"] or not all(
+            np.isfinite(float(v)) for r in rows for v in r[1:]):
+        fail(f"ParticleNet loss.log rows are not epochs 1-3 with finite "
+             f"losses: {rows}")
+    if not float(rows[1][1]) < float(rows[0][1]):
+        fail(f"ParticleNet train loss did not fall from epoch 1 to 2: {rows}")
+    with open(os.path.join(ck, "metrics_val_best.json")) as f:
+        best = json.load(f)["loss"]
+    ev = os.path.join(work, "pn_train_eval")
+    os.makedirs(ev)
+    for f in ("config.json", "best.ckpt"):
+        shutil.copy(os.path.join(ck, f), ev)
+    got, launches, sec = counted(
+        "ParticleNet evaluate CLI", lambda: evaluate_cli.run(
+            ["--model", "particlenet", "--synthetic", str(PN_TRAIN_EVENTS),
+             "--ckpts", ev, "--batch_size", str(PN_TRAIN_B)])["loss"],
+        evals, 0)
+    rel = abs(got - best) / abs(best)
+    say("pn_train_reeval", metrics_val_best=best, evaluate_cli=got,
+        rel_err=rel, launches=launches, seconds=sec,
+        loss_log=[",".join(r).strip() for r in rows])
+    if not rel <= REEVAL_RTOL:
+        fail(f"evaluate CLI gives {got} on the ParticleNet train CLI's "
+             f"best.ckpt, not within {REEVAL_RTOL} of its "
+             f"metrics_val_best.json {best}")
     return total
 
 
@@ -4792,6 +5058,11 @@ def main() -> int:
     # the JAX package's composed path; the mirror gather's backward
     drn_composed_phase(device)
 
+    # 16c. ParticleNet: its kernels at the cell's shapes, then the train
+    # CLI and the evaluate CLI with the launches counted
+    pn_fwd, pn_bwd = kernel_pn_edge_phase(device)
+    pn_main = pn_train_phase(work)
+
     # 17. the revolver probe's kernel
     probe_launches, probe = probe_phase(device)
 
@@ -4855,7 +5126,13 @@ def main() -> int:
             "launches": EMBED_MAIN["cat_embed_fwd"]}, **embed_fwd), dict({
             "name": "cat_embed_bwd", "route": "cuda",
             "source": src + "cat_embed.cu", "replaces": None,
-            "launches": EMBED_MAIN["cat_embed_bwd"]}, **embed_bwd)]}),
+            "launches": EMBED_MAIN["cat_embed_bwd"]}, **embed_bwd), dict({
+            "name": "pn_edge_fwd", "route": "cuda",
+            "source": src + "pn_edge.cu", "replaces": None,
+            "launches": pn_main["pn_edge_fwd"]}, **pn_fwd), dict({
+            "name": "pn_edge_bwd", "route": "cuda",
+            "source": src + "pn_edge.cu", "replaces": None,
+            "launches": pn_main["pn_edge_bwd"]}, **pn_bwd)]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

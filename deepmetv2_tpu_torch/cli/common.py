@@ -39,7 +39,8 @@ def load_run_config(ckpt_dir: str) -> Config:
         return Config()
     with open(path) as f:
         run = Config.from_json(f.read())
-    return dataclasses.replace(Config(), model=run.model, drn=run.drn)
+    return dataclasses.replace(Config(), model=run.model, drn=run.drn,
+                               particlenet=run.particlenet)
 
 
 def apply_graph_mode(cfg: Config, args, all_events, presorted: bool = False,
@@ -88,7 +89,8 @@ def check_from_torch(args) -> None:
 def load_model_for_eval(args, cfg: Config, ckpt_dir: str, device):
     """(model, eval_step) from a reference ``.pth.tar`` (``--from_torch``,
     GraphMET only) or a native ``.ckpt`` of either package, for ``--model
-    graphmet`` (GraphMET) or ``--model drn`` (DRN)."""
+    graphmet`` (GraphMET), ``--model drn`` (DRN) or ``--model
+    particlenet``."""
     from deepmetv2_tpu_torch.train.checkpoint import load_checkpoint
 
     check_from_torch(args)
@@ -106,6 +108,12 @@ def load_model_for_eval(args, cfg: Config, ckpt_dir: str, device):
 
         model = DRN(cfg.drn, device=device)
         step = make_drn_eval_step(cfg)
+    elif args.model == "particlenet":
+        from deepmetv2_tpu_torch.models.particlenet import ParticleNet
+        from deepmetv2_tpu_torch.train.step import make_pn_eval_step
+
+        model = ParticleNet(cfg.particlenet, device=device)
+        step = make_pn_eval_step(cfg)
     else:
         from deepmetv2_tpu_torch.models.graph_met import GraphMET
         from deepmetv2_tpu_torch.train.step import make_eval_step
@@ -127,7 +135,8 @@ def add_common_flags(p) -> None:
     p.add_argument("--graph_mode", choices=["window", "neighbor_list"],
                    default="window")
     p.add_argument("--from_torch", default=None)
-    p.add_argument("--model", choices=["graphmet", "drn"], default="graphmet")
+    p.add_argument("--model", choices=["graphmet", "drn", "particlenet"],
+                   default="graphmet")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions of the kernels)")

@@ -10,7 +10,8 @@ event i of the input:
 
   * graphmet: the −Σ wᵢpᵢ estimate (reference model/net.py:55-56) and the
     per-candidate ``weights`` (padded ``[n_events, n_max]``);
-  * drn (``--model drn``): the head's cartesian MET estimate, no weights.
+  * drn (``--model drn``) and particlenet (``--model particlenet``): the
+    head's cartesian MET estimate, no weights.
 """
 
 from __future__ import annotations

@@ -7,6 +7,8 @@
     python -m deepmetv2_tpu_torch.cli.train --model drn --drn_head cartesian \\
         --synthetic 2000 --batch_size 16 --grad_clip 10 --plateau_patience 10 \\
         --bn_refresh 30 --ckpts ckpts_drn [--restore_file last] [--device cpu]
+    python -m deepmetv2_tpu_torch.cli.train --model particlenet \
+        --synthetic 2000 --batch_size 16 --ckpts ckpts_pn [--device cpu]
 
 GraphMET in window mode: the loaders presort each batch on the host (cell
 order by default), the halo is sized from the order they emit.  GraphMET
@@ -14,7 +16,9 @@ with ``--graph_mode neighbor_list``: no presort; each step builds the
 radius graph's lists (capped at 256, self-loops).  The DRN (``--model
 drn``): no presort (it builds its own graphs), ``datanorm`` set to 1/std
 of each feature over the training candidates and the output scale to the
-training set's mean |genMET|, as the JAX CLI does.  AdamW with the plateau
+training set's mean |genMET|, as the JAX CLI does.  ParticleNet (``--model
+particlenet``, the port's own family, one device): no presort, its output
+scale the training set's mean |genMET|.  AdamW with the plateau
 scheduler trains either on one device, through the config's feed (chains
 of ``chain_steps`` = 8 steps as CUDA graph replays, the epoch resident on
 the device; the line "feed: ..." names it), as the JAX CLI has no flag
@@ -56,6 +60,7 @@ from deepmetv2_tpu_torch.config import Config, DataConfig
 from deepmetv2_tpu_torch.data import fetch_dataloader, synthetic_events
 from deepmetv2_tpu_torch.models.drn import DRN
 from deepmetv2_tpu_torch.models.graph_met import GraphMET
+from deepmetv2_tpu_torch.models.particlenet import ParticleNet
 from deepmetv2_tpu_torch.parallel import multihost
 from deepmetv2_tpu_torch.train.loop import feed_line, fit
 from deepmetv2_tpu_torch.train.step import make_optimizer
@@ -92,9 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions of the kernels)")
-    p.add_argument("--model", choices=["graphmet", "drn"], default="graphmet",
-                   help="model family: the weight regressor GraphMET or the "
-                        "DynamicReductionNetwork")
+    p.add_argument("--model", choices=["graphmet", "drn", "particlenet"],
+                   default="graphmet",
+                   help="model family: the weight regressor GraphMET, the "
+                        "DynamicReductionNetwork or ParticleNet")
     p.add_argument("--drn_aggr", choices=["add", "max", "mean"], default=None,
                    help="DRN EdgeConv aggregation (default add)")
     p.add_argument("--drn_head", choices=["polar", "cartesian"], default=None,
@@ -153,6 +159,8 @@ def check_flags(args):
         raise SystemExit("--ring_knn requires --model drn and a "
                          "node-sharded mesh (--mesh DxN, N > 1)")
     check_from_torch(args)
+    if dims and args.model == "particlenet":
+        raise SystemExit("--mesh: ParticleNet trains on one device")
     if dims:
         n_data, n_node = dims
         if (n_node > 1 and args.model == "graphmet"
@@ -291,7 +299,8 @@ def run(args, device, mesh=None) -> int:
     if args.sort_mode == "cell" and shard_nodes and not is_drn:
         say("note: cell-order edge partitioning exchanges the (wider) cell "
             "span as its halo; 'eta' minimizes the exchanged rows")
-    presort = args.graph_mode == "window" and not is_drn
+    is_pn = args.model == "particlenet"
+    presort = args.graph_mode == "window" and not (is_drn or is_pn)
     kw = dict(batch_size=cfg.data.batch_size,
               validation_split=cfg.data.validation_split,
               buckets=cfg.data.node_buckets, mode=args.mode,
@@ -332,6 +341,14 @@ def run(args, device, mesh=None) -> int:
         say(f"drn: output scale = mean |genMET| = {met_bias:.1f}; "
               f"datanorm from training-set feature stds")
         model = DRN(cfg.drn, generator=gen, norm=norm, met_bias=met_bias)
+    elif is_pn:
+        _, met_bias = drn_data_init(loaders["train"].dataset,
+                                    loaders["train"].indices)
+        if met_bias > 0:
+            cfg = dataclasses.replace(cfg, particlenet=dataclasses.replace(
+                cfg.particlenet, output_scale=met_bias))
+        say(f"particlenet: output scale = mean |genMET| = {met_bias:.1f}")
+        model = ParticleNet(cfg.particlenet, generator=gen)
     else:
         model = GraphMET(cfg.model, generator=gen)
         if args.from_torch:

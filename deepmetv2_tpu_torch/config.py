@@ -14,6 +14,11 @@ import json
 from typing import Optional, Tuple
 
 
+def _tuples(v):
+    """JSON lists as (nested) tuples, the dataclasses' form."""
+    return tuple(_tuples(e) for e in v) if isinstance(v, list) else v
+
+
 @dataclasses.dataclass(frozen=True)
 class GraphConfig:
     """Graph construction (reference train.py:47-48)."""
@@ -62,6 +67,29 @@ class DRNConfig:
     ring_knn: bool = False
     compact_pool: bool = True
     output_scale: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ParticleNetConfig:
+    """ParticleNet hyperparameters (models/particlenet.py; weaver-core
+    ``networks/example_ParticleNet.py``): the widths of each EdgeConv
+    block's three 1x1 convolutions, all at ``k`` neighbours."""
+
+    input_dim: int = 11
+    k: int = 16
+    conv_params: Tuple[Tuple[int, ...], ...] = ((64, 64, 64),
+                                                (128, 128, 128),
+                                                (256, 256, 256))
+    fc: int = 256
+    dropout: float = 0.1
+    output_scale: float = 1.0
+
+    @property
+    def fusion(self) -> int:
+        """The fusion's width by weaver's rule: the blocks' widths summed,
+        rounded down to a multiple of 128, clipped to 128..1024."""
+        fused = sum(w[-1] for w in self.conv_params)
+        return min(max(fused // 128 * 128, 128), 1024)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +146,8 @@ class Config:
     graph: GraphConfig = dataclasses.field(default_factory=GraphConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     drn: DRNConfig = dataclasses.field(default_factory=DRNConfig)
+    particlenet: ParticleNetConfig = dataclasses.field(
+        default_factory=ParticleNetConfig)
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
@@ -131,13 +161,13 @@ class Config:
         raw = json.loads(s)
         sub = {
             "graph": GraphConfig, "model": ModelConfig, "drn": DRNConfig,
-            "optim": OptimConfig, "data": DataConfig, "train": TrainConfig,
+            "particlenet": ParticleNetConfig, "optim": OptimConfig,
+            "data": DataConfig, "train": TrainConfig,
             "mesh": MeshConfig,
         }
         kwargs = {}
         for key, cls in sub.items():
             if key in raw:
-                d = {k: (tuple(v) if isinstance(v, list) else v)
-                     for k, v in raw[key].items()}
+                d = {k: _tuples(v) for k, v in raw[key].items()}
                 kwargs[key] = cls(**d)
         return Config(**kwargs)

@@ -9,6 +9,9 @@
 //   knn_kth:     t[b,i]   = k-th smallest d2(i,.) counted with multiplicity
 //                           (+inf when fewer than k sources are valid)
 //   knn_extract: U(i,j)   = (d2 <= t_i || d2 <= t_j) && valid_j && j != i;
+//                with `directed` (a runtime flag): d2 <= t_i alone (each
+//                source's threshold is staged as -1), so with cap = k each
+//                real row lists its k nearest real sources;
 //                idx/d2v  = the first cap members of row i in ascending
 //                           (d2, j) order (0 / +inf where the row runs dry);
 //                rel[b,i,j] = U(i,j) as a byte (optional)
@@ -227,7 +230,12 @@ knn_kernel(const float* __restrict__ h, const float* __restrict__ sq,
            const int* __restrict__ cnt, float* __restrict__ t_out,
            int* __restrict__ idx_out, float* __restrict__ d2v_out,
            unsigned char* __restrict__ rel_out, int N, int H,
-           int kc /* k, or cap */) {
+           int kc /* k, or cap; negated: the directed extraction */) {
+  bool directed = false;  // knn_kth's code stays as it was
+  if constexpr (EXTRACT) {
+    directed = kc < 0;
+    kc = directed ? -kc : kc;
+  }
   extern __shared__ __align__(16) unsigned char smem[];
   const int R = blockDim.x >> 5;
   const int hs = row_stride(H), hp = padded_h(H);
@@ -328,7 +336,9 @@ knn_kernel(const float* __restrict__ h, const float* __restrict__ sq,
       const int j = pe[s0 + tid];
       __pipeline_memcpy_async(sq_s + (c & 1) * CHUNK + tid, sq + eb + j,
                               sizeof(float));
-      if (EXTRACT)
+      if (EXTRACT && directed)  // d2 >= 0 never passes a source's -1
+        tj_s[(c & 1) * CHUNK + tid] = -1.f;
+      else if (EXTRACT)
         __pipeline_memcpy_async(tj_s + (c & 1) * CHUNK + tid, t_in + eb + j,
                                 sizeof(float));
       id_s[(c & 1) * CHUNK + tid] = j;
@@ -496,16 +506,18 @@ int knn_kth(const float* h, const unsigned char* mask, float* sq, float* t,
 
 // idx, d2v [B,N,cap] and (when rel is not null) rel [B,N,N] from h, mask,
 // the thresholds t and the squared norms sq, both from knn_kth; perm and
-// cnt are scratch as for knn_kth.
+// cnt are scratch as for knn_kth.  directed != 0: the relation d2 <= t_i
+// alone.  The flag travels to the kernel as the sign of its cap argument,
+// so the kernels' names and parameter lists stay as they were.
 int knn_extract(const float* h, const unsigned char* mask, const float* t,
                 const float* sq, int* idx, float* d2v, unsigned char* rel,
                 int* perm, int* cnt, int B, int N, int H, int cap,
-                void* stream) {
+                int directed, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = compact(mask, perm, cnt, B, N, st);
   if (err == cudaSuccess)
     err = launch<true>(h, sq, t, perm, cnt, nullptr, idx, d2v, rel, B, N, H,
-                       cap, st);
+                       directed ? -cap : cap, st);
   return static_cast<int>(err);
 }
 

@@ -29,7 +29,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "knn_kth": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "knn_extract": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                    _P],
+                    _I, _P],
 }
 
 
@@ -81,15 +81,17 @@ build.counted(knn_kth)
 
 
 def knn_extract(h: torch.Tensor, mask: torch.Tensor, t: torch.Tensor,
-                sq: torch.Tensor, cap: int, want_rel: bool = False
+                sq: torch.Tensor, cap: int, want_rel: bool = False,
+                directed: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor,
                            Optional[torch.Tensor]]:
     """``(idx, d2v, rel)``: the threshold relation's first ``cap`` members
     per row in ascending (d², index) order, and the relation itself as a
     bool ``[B, N, N]`` when ``want_rel`` (else None), from ``knn_kth``'s
-    ``(t, sq)``; see ops/knn_und.py:knn_extract_torch."""
+    ``(t, sq)``; ``directed``: the relation ``d² <= t_i`` alone (see
+    ops/knn_und.py:knn_extract_torch)."""
     if build.on_cpu("knn_extract", h):
-        return knn_extract_torch(h, mask, t, sq, cap, want_rel)
+        return knn_extract_torch(h, mask, t, sq, cap, want_rel, directed)
     h, mask, t, sq = _prepare("knn_extract", h, mask, t, sq)
     B, N, H = h.shape
     if not 1 <= cap:
@@ -105,7 +107,7 @@ def knn_extract(h: torch.Tensor, mask: torch.Tensor, t: torch.Tensor,
                  dev, h.data_ptr(), mask.data_ptr(), t.data_ptr(),
                  sq.data_ptr(), idx.data_ptr(), d2v.data_ptr(),
                  rel.data_ptr() if want_rel else None, perm.data_ptr(),
-                 cnt.data_ptr(), B, N, H, int(cap))
+                 cnt.data_ptr(), B, N, H, int(cap), int(directed))
     knn_extract.launches += 1
     return idx, d2v, rel
 

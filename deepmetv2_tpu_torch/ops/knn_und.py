@@ -9,6 +9,9 @@ with multiplicity),
 
 and each row lists its first ``cap`` members in ascending (d², index)
 order, so rows past the cap keep their nearest ``cap`` neighbours.
+ParticleNet's graph is the directed relation ``d²(i,j) <= t_i`` alone
+(``directed=True``): with ``cap = k`` each real row lists its own k
+nearest real sources.
 
 This module is the CPU path and the oracle of the CUDA kernels
 (ops/cuda/knn_und.py, csrc/knn_und.cu).  Both compute
@@ -91,7 +94,8 @@ def knn_kth_torch(h: torch.Tensor, mask: torch.Tensor, k: int
 
 
 def knn_extract_torch(h: torch.Tensor, mask: torch.Tensor, t: torch.Tensor,
-                      sq: torch.Tensor, cap: int, want_rel: bool = False
+                      sq: torch.Tensor, cap: int, want_rel: bool = False,
+                      directed: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor,
                                  Optional[torch.Tensor]]:
     """The threshold relation's first ``cap`` members per row in ascending
@@ -99,7 +103,8 @@ def knn_extract_torch(h: torch.Tensor, mask: torch.Tensor, t: torch.Tensor,
     ``knn_kth_torch``: ``idx [B, N, cap]`` int32 (0 where the row ran
     dry), ``d2v [B, N, cap]`` f32 (+inf where dry), and with ``want_rel``
     the relation ``rel [B, N, N]`` bool.  Padded query rows hold no member:
-    their slots are all dry and their relation rows false."""
+    their slots are all dry and their relation rows false.  ``directed``:
+    the relation ``d² <= t_i`` alone."""
     h = h.detach().float()
     B, N, _ = h.shape
     idx = torch.empty((B, N, cap), dtype=torch.int32, device=h.device)
@@ -109,8 +114,10 @@ def knn_extract_torch(h: torch.Tensor, mask: torch.Tensor, t: torch.Tensor,
     inf = torch.tensor(float("inf"), device=h.device)
     for b in range(B):
         d2 = event_d2(h[b], sq[b])
-        u = (((d2 <= t[b][:, None]) | (d2 <= t[b][None, :]))
-             & _valid(mask[b]) & mask[b][:, None])
+        near = d2 <= t[b][:, None]
+        if not directed:
+            near = near | (d2 <= t[b][None, :])
+        u = near & _valid(mask[b]) & mask[b][:, None]
         vals, order = torch.sort(torch.where(u, d2, inf), dim=-1,
                                  stable=True)
         vals, order = vals[:, :cap], order[:, :cap]

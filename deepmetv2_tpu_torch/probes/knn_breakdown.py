@@ -119,7 +119,7 @@ def run(device, reps: int = 20) -> Dict[str, Dict[str, float]]:
         lib = ctypes.CDLL(str(path))
         kth, ext = lib.knn_kth, lib.knn_extract
         kth.argtypes = [P] * 6 + [I] * 4 + [P]
-        ext.argtypes = [P] * 9 + [I] * 4 + [P]
+        ext.argtypes = [P] * 9 + [I] * 5 + [P]
         kth.restype = ext.restype = ctypes.c_int
         sq_v, t_v = torch.empty_like(sq), torch.empty_like(t)
         perm = torch.empty((B, N), dtype=torch.int32, device=device)
@@ -136,7 +136,7 @@ def run(device, reps: int = 20) -> Dict[str, Dict[str, float]]:
         def run_ext():
             if ext(h.data_ptr(), mask.data_ptr(), t.data_ptr(), sq.data_ptr(),
                    idx.data_ptr(), d2v.data_ptr(), rel.data_ptr(),
-                   perm.data_ptr(), cnt.data_ptr(), B, N, H, CAP, stream):
+                   perm.data_ptr(), cnt.data_ptr(), B, N, H, CAP, 0, stream):
                 raise RuntimeError(f"knn_breakdown: {name} knn_extract failed")
 
         if name in EXACT:

@@ -48,9 +48,7 @@ import torch
 from deepmetv2_tpu_torch.config import Config
 from deepmetv2_tpu_torch.data.batching import EventBatch
 from deepmetv2_tpu_torch.ops.cuda import build
-from deepmetv2_tpu_torch.train.step import (drn_objective,
-                                            graphmet_objective,
-                                            make_train_step)
+from deepmetv2_tpu_torch.train.step import family_objective, make_train_step
 from deepmetv2_tpu_torch.utils.profiling import annotate
 
 
@@ -196,14 +194,14 @@ def mesh_train_step(cfg: Config, model: str, mesh,
 def make_chained_train_step(cfg: Config, model: str = "graphmet",
                             mesh=None, shard_nodes: bool = False):
     """Chained counterpart of ``train/step.make_train_step`` for the family
-    ``model`` ('graphmet' or 'drn'): a ``ChainedStep`` over its train
-    step, or on a ``mesh`` the loop of its mesh step (``mesh_train_step``)
-    over the chain's K batches, eagerly, in order."""
-    if model not in ("graphmet", "drn"):
-        raise ValueError(f"unknown model family {model!r}")
+    ``model`` ('graphmet', 'drn' or 'particlenet'): a ``ChainedStep`` over
+    its train step, or on a ``mesh`` the loop of its mesh step
+    (``mesh_train_step``; GraphMET and the DRN) over the chain's K
+    batches, eagerly, in order."""
+    objective = family_objective(cfg, model)
     if mesh is not None:
+        if model == "particlenet":
+            raise ValueError("ParticleNet has no mesh step")
         return functools.partial(
             _run_chain, mesh_train_step(cfg, model, mesh, shard_nodes))
-    objective = (drn_objective(cfg) if model == "drn"
-                 else graphmet_objective(cfg))
     return ChainedStep(make_train_step(cfg, objective))

@@ -30,6 +30,7 @@ from deepmetv2_tpu_torch.data.batching import to_device
 from deepmetv2_tpu_torch.data.loader import (PaddedLoader, device_feed,
                                              prefetch_to_device)
 from deepmetv2_tpu_torch.models.drn import DRN
+from deepmetv2_tpu_torch.models.particlenet import ParticleNet
 from deepmetv2_tpu_torch.train import metrics as metrics_mod
 from deepmetv2_tpu_torch.train.chain import (chain_batches,
                                              make_chained_train_step,
@@ -38,11 +39,12 @@ from deepmetv2_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                   save_checkpoint)
 from deepmetv2_tpu_torch.train.resident import ResidentFeed
 from deepmetv2_tpu_torch.train.schedule import ReduceLROnPlateau
-from deepmetv2_tpu_torch.train.step import (drn_objective,
-                                            graphmet_objective,
+from deepmetv2_tpu_torch.train.step import (family_objective,
                                             make_bn_refresh_step,
                                             make_drn_eval_step,
-                                            make_eval_step, make_train_step,
+                                            make_eval_step,
+                                            make_pn_eval_step,
+                                            make_train_step,
                                             set_learning_rate)
 from deepmetv2_tpu_torch.utils import artifacts
 from deepmetv2_tpu_torch.utils.logging import RunningAverage, StepTimer
@@ -154,7 +156,8 @@ def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
     epochs of train steps, the plateau step on the mean train loss, then
     validation, checkpoints and artifacts.  The model's class picks the
     steps, as the JAX package's ``model`` argument does (loop.py:260-264):
-    GraphMET's or the DRN's (``models.drn.DRN``).  The feed is the
+    GraphMET's, the DRN's (``models.drn.DRN``) or ParticleNet's
+    (``models.particlenet.ParticleNet``, single device).  The feed is the
     config's, as in the JAX package (loop.py:211-212, 253-258, 276-282):
     chains of ``cfg.train.chain_steps`` steps, and with
     ``cfg.train.resident_feed`` the train epoch (chained) and the
@@ -179,11 +182,11 @@ def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
     verbose = verbose and primary
     if primary:
         os.makedirs(ckpt_dir, exist_ok=True)
-    family = "drn" if isinstance(model, DRN) else "graphmet"
-    if family == "drn":
-        objective, eval_step = drn_objective(cfg), make_drn_eval_step(cfg)
-    else:
-        objective, eval_step = graphmet_objective(cfg), make_eval_step(cfg)
+    family = ("drn" if isinstance(model, DRN) else "particlenet"
+              if isinstance(model, ParticleNet) else "graphmet")
+    objective = family_objective(cfg, family)
+    eval_step = {"drn": make_drn_eval_step, "particlenet": make_pn_eval_step,
+                 "graphmet": make_eval_step}[family](cfg)
     chain = max(1, cfg.train.chain_steps)
     train_shard = eval_pad = None
     if mesh is not None:

@@ -1,6 +1,6 @@
 """Per-batch steps (the JAX package's ``train/step.py``): the optimizer,
 graph building, and the train, BatchNorm refresh and evaluation steps of
-GraphMET and of the DRN.
+GraphMET, of the DRN and of ParticleNet (the port's own family).
 
 Where the JAX package carries a ``TrainState`` pytree through jitted steps,
 the port keeps the model (parameters and BatchNorm buffers) and a
@@ -21,6 +21,7 @@ from deepmetv2_tpu_torch.data.batching import EventBatch, Neighborhood
 from deepmetv2_tpu_torch.data.sorting import sort_by_eta
 from deepmetv2_tpu_torch.models.drn import drn_net_apply
 from deepmetv2_tpu_torch.models.graph_met import GraphMET, net_apply
+from deepmetv2_tpu_torch.models.particlenet import particlenet_net_apply
 from deepmetv2_tpu_torch.ops.graph import radius_graph
 from deepmetv2_tpu_torch.ops.window import WindowGraph
 from deepmetv2_tpu_torch.train.loss import (drn_loss_fn, drn_met_vector,
@@ -166,6 +167,27 @@ def drn_objective(cfg: Config) -> Callable:
     return objective
 
 
+def particlenet_objective(cfg: Config) -> Callable:
+    """ParticleNet's ``(model, batch) -> loss``: the model builds its kNN
+    graphs per block; the DRN's cartesian ``drn_loss_fn``."""
+
+    def objective(model, batch: EventBatch) -> torch.Tensor:
+        return drn_loss_fn(particlenet_net_apply(model, batch), batch,
+                           "cartesian")
+
+    return objective
+
+
+def family_objective(cfg: Config, family: str) -> Callable:
+    """The objective of the model family ``family`` ('graphmet', 'drn' or
+    'particlenet')."""
+    objectives = {"graphmet": graphmet_objective, "drn": drn_objective,
+                  "particlenet": particlenet_objective}
+    if family not in objectives:
+        raise ValueError(f"unknown model family {family!r}")
+    return objectives[family](cfg)
+
+
 def make_train_step(cfg: Config, objective: Optional[Callable] = None
                     ) -> Callable:
     """The train step of ``_step`` on ``objective`` (default GraphMET's)."""
@@ -241,6 +263,21 @@ def make_eval_step(cfg: Config) -> Callable:
         with annotate("step.eval"):
             model.eval()
             return body(model, batch)
+
+    return eval_step
+
+
+def make_pn_eval_step(cfg: Config) -> Callable:
+    """ParticleNet's evaluation step ``(model, batch) -> (v_met [B, 2],
+    loss, None)`` under ``torch.no_grad()`` with the model in eval mode,
+    in the slots of GraphMET's step."""
+    @torch.no_grad()
+    def eval_step(model, batch: EventBatch):
+        with annotate("step.eval"):
+            model.eval()
+            pred = particlenet_net_apply(model, batch)
+            return (drn_met_vector(pred, "cartesian"),
+                    drn_loss_fn(pred, batch, "cartesian"), None)
 
     return eval_step
 

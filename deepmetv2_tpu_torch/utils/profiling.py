@@ -39,16 +39,20 @@ SPANS = {
     "graph.unsort": "graph ops: the weights' inverse-permutation gather "
                     "back to the caller's order",
     "graph.knn": "graph ops: the DRN round's kNN graph build (the knn_kth "
-                 "and knn_extract kernels, or the composed build)",
+                 "and knn_extract kernels, or the composed build); each of "
+                 "ParticleNet's three directed builds",
     "graph.match": "graph ops: the DRN round's normalized-cut weights and "
                    "handshake matching",
     "graph.pool": "graph ops: the DRN round's max pooling and compaction",
     "model.embed": "model: GraphMET's embeddings and encoder through "
-                   "bn_all; the DRN's input network",
+                   "bn_all; the DRN's input network; ParticleNet's input "
+                   "BatchNorm",
     "model.conv": "model: one EdgeConv block (GraphMET's window EdgeConv "
-                  "and BatchNorm, the DRN round's edge-MLP conv)",
+                  "and BatchNorm, the DRN round's edge-MLP conv, "
+                  "ParticleNet's edge block and shortcut)",
     "model.head": "model: the output network (the DRN's after its "
-                  "per-event max pool)",
+                  "per-event max pool; ParticleNet's fusion, mean pool "
+                  "and FC layers)",
     "chain.warm_up": "feed: a chain's first, eager run on the capture "
                      "stream",
     "chain.capture": "feed: the capture of a chain into a CUDA graph",
