@@ -130,10 +130,15 @@ Phases, each printing one line:
      H=64, k=16, cap 32), (b) lattice features with many equal distances,
      (c) padded rows, an empty and a 3-node event at N=1536, (d) scattered
      masks with a hub at N=2048, N=1003 and H=13, (e) N=4096 and N=8192 at
-     B=2, where the tiled matching's relation must be rel; padded rows must
-     hold t=+inf, empty slots and a zero relation row; with both kernels' times
-     at N=2048 and N=1536 beside the plain versions', the bounds and the
-     times of the kernels' first design (KNN_FIRST_DESIGN_MS);
+     B=2, where the tiled matching's relation must be rel, (f) the DRN
+     cells' shapes, 40 events of 500-5000 candidates at N=8192 and N=6144
+     with a hub past the cap and ties at the k-th distance (knn_cell_case),
+     also bitwise over a second call and a CUDA graph's replay; padded rows
+     must hold t=+inf, empty slots and a zero relation row; with both
+     kernels' times at N=2048 and N=1536 beside the plain versions', the
+     bounds and the times of the kernels' first design
+     (KNN_FIRST_DESIGN_MS), and at the cells' shapes beside the second
+     design's (KNN_SECOND_DESIGN_MS);
  10. kernel_edge_mlp: edge_mlp_fwd against its plain version for add,
      mean and max on the graph of (a), within GRAD_RTOL/GRAD_ATOL, its
      per-node first layer (edge_mlp_proj) against the plain product in
@@ -1402,6 +1407,104 @@ def knn_bound(mask, H: int, cap: int = 0, rel: bool = False):
 # features, on an H100 80GB HBM3 at 700 W (PERF.md's kernel table), printed
 # beside this run's
 KNN_FIRST_DESIGN_MS = {2048: (5.29, 5.59), 1536: (3.04, 3.23)}
+# ... and of their second design (blocks of 8 query rows, 2 at N >= 6144,
+# each keeping its rows' whole d2 rows in shared memory) at the cells'
+# shapes of kernel_knn_cells, on the same card
+KNN_SECOND_DESIGN_MS = {8192: (40.48, 41.41), 6144: (32.56, 32.90)}
+
+
+def knn_cell_case(device, N: int):
+    """``(h [40, N, 64], mask [40, N])`` of case (f): the DRN's round-1
+    features of 40 events of 500-5000 candidates (probes/knn_breakdown.py's
+    cell_inputs), event 0 made a hub past the cap (its first node at the
+    origin, the others in random directions on a shell around it, so that
+    the hub is every node's nearest) and event 1's nodes repeated in pairs
+    (exact ties at the k-th distance)."""
+    import torch
+    from deepmetv2_tpu_torch.probes.knn_breakdown import cell_inputs
+
+    h, mask = cell_inputs(device, N)
+    n0, n1 = (int(v) for v in mask[:2].sum(dim=1))
+    gen = torch.Generator(device=device).manual_seed(N)
+    u = torch.randn((n0, h.shape[-1]), generator=gen, device=device)
+    r = torch.linspace(1.0, 2.0, n0, device=device)[:, None]
+    h[0, :n0] = u / u.norm(dim=-1, keepdim=True) * r
+    h[0, 0] = 0.0
+    h[1, 1:n1:2] = h[1, 0:n1 - 1:2]
+    return h, mask
+
+
+def kernel_knn_cells(device, k: int, cap: int):
+    """(f) The kNN kernels at the DRN cells' shapes (knn_cell_case, N=8192
+    and N=6144): knn_kth and knn_extract bitwise against their plain
+    versions, bitwise over a second call and over a CUDA graph's replay,
+    and their times beside the bound, the plain versions' and the second
+    design's."""
+    import torch
+    from deepmetv2_tpu_torch.ops.cuda.knn_und import knn_extract, knn_kth
+    from deepmetv2_tpu_torch.ops.knn_und import (event_d2, knn_extract_torch,
+                                                 knn_kth_torch)
+    from deepmetv2_tpu_torch.probes.knn_breakdown import CELL_NS
+
+    out = {}
+    for N in CELL_NS:
+        h, mask = knn_cell_case(device, N)
+        n = mask.sum(dim=1)
+        n0, n1 = int(n[0]), int(n[1])
+        t, sq = knn_kth(h, mask, k)
+        tp, sqp = knn_kth_torch(h, mask, k)
+        out_k = knn_extract(h, mask, tp, sqp, cap)
+        plain = knn_extract_torch(h, mask, tp, sqp, cap)
+        torch.cuda.synchronize()
+        for what, a, b in (("thresholds", t, tp), ("squared norms", sq, sqp),
+                           ("idx", out_k[0], plain[0]),
+                           ("d2v", out_k[1], plain[1])):
+            if not bitwise_equal(a, b):
+                fail(f"knn case f (N={N}): {n_differ(a, b)} {what} differ "
+                     "from the plain version")
+        t2, _ = knn_kth(h, mask, k)
+        again = knn_extract(h, mask, t, sq, cap)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            knn_extract(h, mask, *knn_kth(h, mask, k), cap)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            tg, sqg = knn_kth(h, mask, k)
+            idxg, d2vg, _ = knn_extract(h, mask, tg, sqg, cap)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not (bitwise_equal(t2, t) and bitwise_equal(tg, t)
+                and all(bitwise_equal(a, b) for a, b in
+                        ((again[0], out_k[0]), (again[1], out_k[1]),
+                         (idxg, out_k[0]), (d2vg, out_k[1])))):
+            fail(f"knn case f (N={N}): a second call or a graph replay "
+                 "differs from the first call")
+        d2_0 = event_d2(h[0, :n0], sq[0, :n0])
+        hub_members = int(((d2_0[0] <= t[0, 0]) | (d2_0[0] <= t[0, :n0]))
+                          [1:].sum())
+        d2_1 = event_d2(h[1, :n1], sq[1, :n1])
+        d2_1.fill_diagonal_(float("inf"))
+        tied = int(((d2_1 == t[1, :n1, None]).sum(dim=1) >= 2).sum())
+        del d2_0, d2_1, graph
+        if hub_members <= cap or tied == 0:
+            fail(f"knn case f (N={N}): the hub relates to {hub_members} "
+                 f"nodes (cap {cap}) and {tied} rows tie at the k-th "
+                 "distance: the case was not exercised")
+        H = h.shape[-1]
+        kb, eb = knn_bound(mask, H), knn_bound(mask, H, cap)
+        out[N] = dict(
+            kth_ms=cuda_ms(lambda: knn_kth(h, mask, k), 20),
+            extract_ms=cuda_ms(lambda: knn_extract(h, mask, t, sq, cap), 20),
+            kth_plain_ms=cuda_ms(lambda: knn_kth_torch(h, mask, k), 1),
+            extract_plain_ms=cuda_ms(
+                lambda: knn_extract_torch(h, mask, t, sq, cap), 1),
+            second_design_ms=KNN_SECOND_DESIGN_MS[N],
+            real_rows=int(n.sum()), kth_bound=kb, extract_bound=eb,
+            hub_members=hub_members, rows_tied_at_kth=tied)
+        del h, mask, t, sq, tp, sqp, out_k, plain, again
+    return out
 
 
 def kernel_knn_phase(device, model, batch):
@@ -1495,9 +1598,9 @@ def kernel_knn_phase(device, model, batch):
         _, (_, _, rel_d) = check(f"d ({bd}, {nd}, {hd})", h_d, mask_d)
         scattered += int(mask_d.sum())
         hub_deg.append(int(rel_d[2, hub].sum()))
-    if min(hub_deg) <= 64:
-        fail(f"knn case d: the hubs relate to {hub_deg} nodes; a row past "
-             "the extraction's 64-member list was not exercised")
+    if min(hub_deg) <= 2 * cap:
+        fail(f"knn case d: the hubs relate to {hub_deg} nodes; a row far "
+             "past the cap was not exercised")
     # (e) the large buckets, N=4096 and N=8192 at B=2 (fewer rows per
     # block), normal features, a 90 % mask: bitwise as above; the graph
     # build hands the extraction's relation over (at 8192 the matching's
@@ -1530,6 +1633,8 @@ def kernel_knn_phase(device, model, batch):
                      "dense": dense_matching(2, ne)}
         del g, h_e, hp, rel_e
 
+    cells = kernel_knn_cells(device, k, cap)
+
     times = {}
     for n in (N, 1536):
         h, m = h_a[:, :n].contiguous(), mask_a[:, :n].contiguous()
@@ -1545,13 +1650,14 @@ def kernel_knn_phase(device, model, batch):
             first_design_ms=KNN_FIRST_DESIGN_MS[n],
             real_rows=int(m.sum()), kth_bound=kb, extract_bound=eb)
     say("kernel_knn", names=["knn_kth", "knn_extract"],
-        cases="a,b,c,d,e bitwise equal (t, sq, idx, d2v, rel); padded rows "
-              "t=+inf, empty slots, zero rel; e: the tiled matching's "
-              "relation is rel", shape=[B, N, H],
+        cases="a,b,c,d,e,f bitwise equal (t, sq, idx, d2v, rel); padded "
+              "rows t=+inf, empty slots, zero rel; e: the tiled matching's "
+              "relation is rel; f: also over a second call and a graph "
+              "replay", shape=[B, N, H],
         k=k, cap=cap, real_rows=int(mask_a.sum()),
         rows_past_cap_a=cap_rows, max_degree_a=int(deg[mask_a].max()),
         equal_adjacent_slots_b=ties, real_rows_d=scattered,
-        hub_degree_d=hub_deg, large_e=large, times=times)
+        hub_degree_d=hub_deg, large_e=large, times=times, cells_f=cells)
     tk, te = times[N], times[N]
     return (h_a, t_a), [
         {"max_abs_err": max(errs), "ms": tk["kth_ms"],

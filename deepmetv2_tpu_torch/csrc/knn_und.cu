@@ -31,38 +31,51 @@
 //    valid node ids ascending, then its padded ids ascending, and cnt[b],
 //    the count of valid ones.  With a prefix mask perm is the identity.
 //    Both kernels run it first; knn_kth also runs knn_sqnorm_kernel.
-//  - A block owns R (<= 8, even) consecutive entries of perm, one warp per
-//    query row.  A block past the event's count writes the padded-row
-//    outputs and exits; so does each warp of a padded row.
-//  - The block walks the event's real sources in 64-row chunks, gathered
-//    through perm into shared memory by cp.async, double-buffered (chunk
-//    c+1 is in flight while chunk c is computed).  Rows are padded to a
-//    stride of an odd count of 16-byte words, so a warp's float4 loads of
-//    consecutive source rows are free of bank conflicts.  Each thread
-//    computes a 2 x 1 register tile (two query rows against one source) by
-//    float4 loads: three shared loads per eight products, not two per one.
-//  - Each warp keeps its query's masked d2 row over the real sources (in
-//    perm order, i.e. ascending j) in shared memory.  knn_kth selects from
-//    it by k rounds of a warp-wide argmin over per-lane minima (only the
-//    winning lane rescans its share).  knn_extract compacts the row's
-//    relation members into a list of (d2 bits, position) keys by ballots
-//    and ranks them (keys are distinct, so rank = slot); a hub with more
-//    than LIST members falls back to cap argmin rounds over the row.  The
-//    relation rows are zeroed by 16-byte stores and each member's byte is
-//    set where its pair is computed.  Every output has one writer; no
-//    float atomics.
+//  - A block owns a tile of Q = 64 consecutive entries of perm (query
+//    rows), 256 threads, three blocks an SM.  A block past the event's
+//    count writes the padded-row outputs and exits; so do the padded rows
+//    of the event's last tile.
+//  - The block streams the event's real sources in chunks of S = 64 rows,
+//    and the features of both the query tile and the chunk in slices of
+//    KS = 16, gathered through perm by cp.async into a ring of NSTAGE = 3
+//    stages (two slices in flight while one is computed); each chunk's
+//    node ids are copied two chunks ahead, so a slice's gather reads them
+//    from shared memory.  Each source slice is read from L2 once per 64
+//    query rows.  Each thread accumulates a 4 x 4 register tile of dot
+//    products (4 query rows against 4 sources) by float4 shared loads:
+//    eight loads per 64 products.  Staged rows have a stride of an odd
+//    count of 16-byte words, so a quarter-warp's loads of eight source rows
+//    are free of bank conflicts; the query loads are broadcasts.  Shared
+//    memory depends on neither N nor H: a wider h is more slices.
+//  - Selection streams.  Each query row belongs to one half-warp (16
+//    threads, the 64 sources of each chunk), which keeps in shared memory
+//    the row's list of the kc (k or cap) smallest keys (d2 bits, position)
+//    seen so far, ascending, and a queue of 16 to 32 keys (as many as the
+//    list).  d2 >= 0, so keys order as (d2, j) does, and positions are
+//    distinct, so the k-th key's d2 is the k-th smallest d2 counted with
+//    multiplicity, and the first cap keys among the members are the first
+//    cap members.  After a chunk's last slice each pair is tested once
+//    against the row's largest kept d2 (after the member test, in the
+//    extraction); the few that pass are tested exactly (a real source, not
+//    the row, a key below the list's largest) and appended to the queue by
+//    ballots, and the queue is merged into the list (ranks, in place) when
+//    the next append could overflow it and once at the end.  Any member
+//    count streams: a hub needs no fallback.  The relation rows are zeroed
+//    by 16-byte stores and each member's byte is set where its pair is
+//    tested.  Every output has one writer; no float atomics.
 //
 // What bounds it on the card: the distance products the data needs, one
 // per pair of real nodes of an event, each pair once (d2 is symmetric):
 // H*n*(n-1) FP32 operations per event of n real nodes, against the bytes of
-// h and the outputs, with the extraction's B*N*N relation bytes (168 MB at
-// B=40, N=2048: 0.05 ms at 3.35 TB/s) the largest; chip_smoke.py computes
-// both from its data.  The kernels still compute each unordered pair twice
-// (once per row), spend a multiply and an add on each product (half the FMA
-// rate), and are held by the distance block (every 8-row block gathers all
-// of its event's real source rows from L2, and the products' shared loads)
-// and then by knn_kth's argmin rounds: times, and their split by
-// probes/knn_breakdown.py, in PERF.md.
+// h and the outputs, with the extraction's B*N*N relation bytes (when asked
+// for) the largest; chip_smoke.py computes both from its data.  The kernels
+// compute each unordered pair twice (once per row) and spend a separate
+// multiply and add on each product (no FMA: the contract), so they can
+// reach at best a quarter of that bound, at the FP32 issue rate of the
+// products.  What holds them under it: the selection (the member test and
+// the filter for every pair, the queues and merges for the few that pass,
+// more of them in knn_kth), then the barrier and the wait of each slice.
+// Times, and their split by probes/knn_breakdown.py, in PERF.md.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -70,50 +83,64 @@
 
 namespace {
 
-constexpr int CHUNK = 64;                  // real sources staged per step
-constexpr int MAX_ROWS = 8;                // query rows (warps) per block
-constexpr int ROW_BUDGET = 64 * 1024;      // bytes of d2 rows per block
-constexpr int LIST = 64;                   // relation members ranked per row
+typedef unsigned long long u64;
+
+constexpr int TR = 4;                      // query rows of a thread's tile
+constexpr int TC = 4;                      // sources of a thread's tile
+constexpr int GX = 16;                     // threads that share a query row
+constexpr int S = GX * TC;                 // real sources staged per chunk
+constexpr int Q = 64;                      // query rows per block
+constexpr int THREADS = Q / TR * GX;
+constexpr int KS = 16;                     // features per slice
+constexpr int KST = KS + 4;                // staged row stride: 5 float4s
+constexpr int NSTAGE = 3;                  // slices in the ring
+constexpr int QCAP = 32;                   // the most queued keys per row
+constexpr int NIDS = 8;                    // chunks' node ids kept (ring)
+constexpr int MAX_KC = 128;                // the largest k or cap
 constexpr int COMPACT_THREADS = 1024;
 constexpr unsigned FULL = 0xffffffffu;
+// the key of no source: above every (d2 bits, position) key; a list starts
+// as SENTINEL | slot, so that its keys are distinct
+constexpr u64 SENTINEL = 0xffffffff00000000ull;
+constexpr unsigned INF_BITS = 0x7f800000u;
 
-// The most query rows, even and at least 2, whose d2 rows fit ROW_BUDGET.
-// Two blocks then fit an SM at N = 2048 and H = 64.
-int rows_per_block(int N) {
-  int r = MAX_ROWS;
-  while (r > 2 && static_cast<size_t>(r) * N * sizeof(float) > ROW_BUDGET)
-    r -= 2;
-  return r;
-}
+static_assert(GX == 16, "a query row's threads are one half-warp");
+static_assert(THREADS >= S, "the chunk's metadata is one copy a thread");
+static_assert(QCAP >= GX && QCAP % GX == 0, "a ballot's keys fit the queue");
 
 // Features rounded up to whole float4s (the pad columns hold zeros, which
 // add +0 to a dot product and so leave d2 bit for bit as it was).
 __host__ __device__ int padded_h(int H) { return (H + 3) & ~3; }
 
-// Row stride of staged features: an odd count of 16-byte words, so eight
-// consecutive rows' float4s land in eight distinct bank groups.
-__host__ __device__ int row_stride(int H) {
-  const int hp = padded_h(H);
-  return ((hp / 4) % 2) ? hp : hp + 4;
-}
-
 struct Layout {  // byte offsets into dynamic shared memory
-  size_t q, src, rows, sq, tj, ids, total;
+  size_t list, queue, stage, meta, ids, qmeta, total;
 };
 
-// lists [R][LIST] u64 (extraction only), q [R][hs], src [2][CHUNK][hs],
-// rows [R][N], then per buffer the chunk's sq, t and ids [2][CHUNK] each.
-__host__ __device__ Layout layout(bool extract, int R, int N, int H) {
-  const size_t hs = row_stride(H);
+// lists [Q][kc] and queues [Q][QCAP] of keys, the ring [NSTAGE][Q + S][KST]
+// (query slice, then source slice), per stage the chunk's sq and t
+// [NSTAGE][2][S], the chunks' node ids [NIDS][S], then the query rows' sq,
+// t and ids [3][Q].
+__host__ __device__ Layout layout(int kc) {
   Layout l;
-  l.q = extract ? sizeof(unsigned long long) * R * LIST : 0;
-  l.src = l.q + sizeof(float) * R * hs;
-  l.rows = l.src + sizeof(float) * 2 * CHUNK * hs;
-  l.sq = l.rows + sizeof(float) * static_cast<size_t>(R) * N;
-  l.tj = l.sq + sizeof(float) * 2 * CHUNK;
-  l.ids = l.tj + sizeof(float) * 2 * CHUNK;
-  l.total = l.ids + sizeof(int) * 2 * CHUNK;
+  l.list = 0;
+  l.queue = l.list + sizeof(u64) * Q * kc;
+  l.stage = l.queue + sizeof(u64) * Q * QCAP;
+  l.meta = l.stage + sizeof(float) * NSTAGE * (Q + S) * KST;
+  l.ids = l.meta + sizeof(float) * NSTAGE * 2 * S;
+  l.qmeta = l.ids + sizeof(int) * NIDS * S;
+  l.total = l.qmeta + sizeof(float) * 3 * Q;
   return l;
+}
+
+// the d2 of a key, +inf for the sentinels
+__device__ __forceinline__ float key_d2(u64 key) {
+  const unsigned hi = static_cast<unsigned>(key >> 32);
+  return hi < INF_BITS ? __uint_as_float(hi) : CUDART_INF_F;
+}
+
+__device__ __forceinline__ u64 make_key(float d2, int s) {
+  return (static_cast<u64>(__float_as_uint(d2)) << 32)
+         | static_cast<unsigned>(s);
 }
 
 __global__ void knn_sqnorm_kernel(const float* __restrict__ h,
@@ -169,62 +196,84 @@ knn_compact_kernel(const unsigned char* __restrict__ mask,
   if (tid == 0) cnt[blockIdx.x] = n;
 }
 
-// Warp-wide argmin over (value, index), lowest index among equal values;
-// every lane ends with the same pair.
-__device__ __forceinline__ void warp_argmin(float& v, int& i) {
+// Adds four features (float4 column v of the staged slice) to the thread's
+// TR x TC tile of dot products, each product and sum rounded on its own.
+__device__ __forceinline__ void dot_quad(float (&acc)[TR][TC],
+                                         const float* qrow, const float* srow,
+                                         int v) {
+  float4 b[TC];
 #pragma unroll
-  for (int off = 16; off; off >>= 1) {
-    const float ov = __shfl_xor_sync(FULL, v, off);
-    const int oi = __shfl_xor_sync(FULL, i, off);
-    if (ov < v || (ov == v && oi < i)) {
-      v = ov;
-      i = oi;
+  for (int cc = 0; cc < TC; ++cc)
+    b[cc] = *reinterpret_cast<const float4*>(srow + cc * GX * KST + 4 * v);
+#pragma unroll
+  for (int r = 0; r < TR; ++r) {
+    const float4 a = *reinterpret_cast<const float4*>(qrow + r * KST + 4 * v);
+#pragma unroll
+    for (int cc = 0; cc < TC; ++cc) {
+      float d = acc[r][cc];
+      d = __fadd_rn(d, __fmul_rn(a.x, b[cc].x));
+      d = __fadd_rn(d, __fmul_rn(a.y, b[cc].y));
+      d = __fadd_rn(d, __fmul_rn(a.z, b[cc].z));
+      d = __fadd_rn(d, __fmul_rn(a.w, b[cc].w));
+      acc[r][cc] = d;
     }
   }
 }
 
-// The smallest (value, index) of this lane's share of row[0, n) (entries
-// lane, lane+32, ...); (+inf, n) when the share holds no finite value.
-__device__ __forceinline__ void share_min(const float* row, int n, int lane,
-                                          float& v, int& p) {
-  v = CUDART_INF_F;
-  p = n;
-  for (int j = lane; j < n; j += 32) {
-    const float x = row[j];
-    if (x < v) {
-      v = x;
-      p = j;
+// Merges a row's queue (qn keys) into its list (kc keys, ascending), keeping
+// the kc smallest, and returns the list's largest key.  Every lane of the
+// warp calls it, each half-warp (lane hl of 16) for its own row.  Keys are
+// distinct, so each key's slot is its rank: a queued key's is the count of
+// list and queued keys below it; a listed key moves up by the count of
+// queued keys below it, in passes from the top down, so that no pass
+// overwrites a key a lower pass has yet to read.
+__device__ __noinline__ u64 merge(u64* list, const u64* queue, int kc, int qn,
+                                  int hl) {
+  __syncwarp();  // every queued key is written
+  u64 qk[QCAP / GX];
+  int qp[QCAP / GX];
+#pragma unroll
+  for (int a = 0; a < QCAP / GX; ++a) {
+    const int e = hl + GX * a;
+    qk[a] = 0;
+    qp[a] = kc;
+    if (e < qn) {
+      const u64 key = queue[e];
+      int lo = 0, hi = kc;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (list[mid] < key)
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      for (int j = 0; j < qn; ++j) lo += queue[j] < key;
+      qk[a] = key;
+      qp[a] = lo;
     }
   }
-}
-
-// Up to `rounds` rounds, each handing the row's smallest (value, index) to
-// emit(round, value, index) and removing it, until the row runs dry.  Only
-// the lane that owns the winner rescans its share.  Returns the rounds
-// taken.
-template <class Emit>
-__device__ int select_smallest(float* row, int n, int lane, int rounds,
-                               Emit emit) {
-  float lv;
-  int lp;
-  share_min(row, n, lane, lv, lp);
-  int c = 0;
-  for (; c < rounds; ++c) {
-    float m = lv;
-    int bi = lp;
-    warp_argmin(m, bi);
-    if (!(m < CUDART_INF_F)) break;  // dry
-    emit(c, m, bi);
-    if ((bi & 31) == lane) {
-      row[bi] = CUDART_INF_F;
-      share_min(row, n, lane, lv, lp);
+  for (int base = (kc - 1) & ~(GX - 1); base >= 0; base -= GX) {
+    const int e = base + hl;
+    u64 key = 0;
+    int pos = kc;
+    if (e < kc) {
+      key = list[e];
+      pos = e;
+      for (int j = 0; j < qn; ++j) pos += queue[j] < key;
     }
+    __syncwarp();  // this pass's keys are read
+    if (pos < kc) list[pos] = key;
   }
-  return c;
+  __syncwarp();    // every listed key has moved
+#pragma unroll
+  for (int a = 0; a < QCAP / GX; ++a)
+    if (qp[a] < kc) list[qp[a]] = qk[a];
+  __syncwarp();
+  return list[kc - 1];
 }
 
 template <bool EXTRACT>
-__global__ void __launch_bounds__(MAX_ROWS * 32, 2)
+__global__ void __launch_bounds__(THREADS, 3)
 knn_kernel(const float* __restrict__ h, const float* __restrict__ sq,
            const float* __restrict__ t_in, const int* __restrict__ perm,
            const int* __restrict__ cnt, float* __restrict__ t_out,
@@ -237,31 +286,25 @@ knn_kernel(const float* __restrict__ h, const float* __restrict__ sq,
     kc = directed ? -kc : kc;
   }
   extern __shared__ __align__(16) unsigned char smem[];
-  const int R = blockDim.x >> 5;
-  const int hs = row_stride(H), hp = padded_h(H);
-  const Layout L = layout(EXTRACT, R, N, H);
-  unsigned long long* lists = reinterpret_cast<unsigned long long*>(smem);
-  float* q_s = reinterpret_cast<float*>(smem + L.q);
-  float* src_s = reinterpret_cast<float*>(smem + L.src);
-  float* rows = reinterpret_cast<float*>(smem + L.rows);
-  float* sq_s = reinterpret_cast<float*>(smem + L.sq);
-  float* tj_s = reinterpret_cast<float*>(smem + L.tj);
-  int* id_s = reinterpret_cast<int*>(smem + L.ids);
+  const Layout L = layout(kc);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int hl = tid % GX, qy = tid / GX;  // source group, query group
   const size_t eb = static_cast<size_t>(blockIdx.y) * N;
   const int* pe = perm + eb;
   const float* hb = h + eb * H;
   const int n = cnt[blockIdx.y];
-  const int p0 = blockIdx.x * R;
+  const int p0 = blockIdx.x * Q;
 
-  auto pad_row = [&](int p) {  // the defined outputs of a padded query row
+  // the defined outputs of the padded query row at position p, by the
+  // threads l of nl
+  auto pad_row = [&](int p, int l, int nl) {
     const size_t i = eb + pe[p];
     if (!EXTRACT) {
-      if (lane == 0) t_out[i] = CUDART_INF_F;
+      if (l == 0) t_out[i] = CUDART_INF_F;
       return;
     }
-    for (int c = lane; c < kc; c += 32) {
+    for (int c = l; c < kc; c += nl) {
       idx_out[i * kc + c] = 0;
       d2v_out[i * kc + c] = CUDART_INF_F;
     }
@@ -270,195 +313,253 @@ knn_kernel(const float* __restrict__ h, const float* __restrict__ sq,
   if (EXTRACT && rel_out) {  // every relation row of the block starts at 0
     if (N % 16 == 0) {
       const int w16 = N / 16;
-      for (int e = tid; e < R * w16; e += blockDim.x) {
+      for (int e = tid; e < Q * w16; e += THREADS) {
         const int r = e / w16;
         if (p0 + r < N)
           reinterpret_cast<uint4*>(rel_out + (eb + pe[p0 + r]) * N)
               [e - r * w16] = make_uint4(0u, 0u, 0u, 0u);
       }
     } else {
-      for (int e = tid; e < R * N; e += blockDim.x) {
+      for (int e = tid; e < Q * N; e += THREADS) {
         const int r = e / N;
         if (p0 + r < N) rel_out[(eb + pe[p0 + r]) * N + (e - r * N)] = 0;
       }
     }
   }
   if (p0 >= n) {  // padded query rows only: no distances
-    if (p0 + warp < N) pad_row(p0 + warp);
+    for (int r = qy; r < Q; r += THREADS / GX)
+      if (p0 + r < N) pad_row(p0 + r, hl, GX);
     return;
   }
-  const int nq = min(R, n - p0);  // real query rows of this block
+  const int nq = min(Q, n - p0);  // real query rows of this block
+  u64* lists = reinterpret_cast<u64*>(smem + L.list);
+  u64* queues = reinterpret_cast<u64*>(smem + L.queue);
+  float* ring = reinterpret_cast<float*>(smem + L.stage);
+  float* meta = reinterpret_cast<float*>(smem + L.meta);
+  int* ids = reinterpret_cast<int*>(smem + L.ids);
+  float* qsq_s = reinterpret_cast<float*>(smem + L.qmeta);
+  float* qt_s = qsq_s + Q;
+  int* qid_s = reinterpret_cast<int*>(qt_s + Q);
 
-  for (int e = tid; e < R * hp; e += blockDim.x) {
-    const int r = e / hp, c = e - r * hp;
-    q_s[r * hs + c] = (r < nq && c < H)
-                          ? hb[static_cast<size_t>(pe[p0 + r]) * H + c]
-                          : 0.f;
+  for (int e = tid; e < Q * kc; e += THREADS)
+    lists[e] = SENTINEL | static_cast<unsigned>(e % kc);
+  for (int r = tid; r < Q; r += THREADS) {  // rows past nq repeat the last
+    const int j = pe[p0 + min(r, nq - 1)];
+    qid_s[r] = j;
+    qsq_s[r] = sq[eb + j];
+    qt_s[r] = EXTRACT ? t_in[eb + j] : 0.f;
   }
-  if (hp > H) {  // the pad columns of both source buffers, once
-    const int w = hp - H;
-    for (int e = tid; e < 2 * CHUNK * w; e += blockDim.x)
-      src_s[(e / w) * hs + H + e % w] = 0.f;
-  }
+  for (int e = tid; e < 2 * S && e < n; e += THREADS) ids[e] = pe[e];
+  __syncthreads();  // the first two chunks' ids and qid_s feed the staging
 
-  // this thread's 2 x 1 tile: query rows qa, qb against source sl
-  const int qa = 2 * (tid >> 6), qb = qa + 1, sl = tid & 63;
-  const bool la = qa < nq, lb = qb < nq;
-  const int ia = la ? pe[p0 + qa] : 0, ib = lb ? pe[p0 + qb] : 0;
-  const float sqa = la ? sq[eb + ia] : 0.f, sqb = lb ? sq[eb + ib] : 0.f;
-  const float ta = (EXTRACT && la) ? t_in[eb + ia] : 0.f;
-  const float tb = (EXTRACT && lb) ? t_in[eb + ib] : 0.f;
-  unsigned char* rela =
-      (EXTRACT && rel_out && la) ? rel_out + (eb + ia) * N : nullptr;
-  unsigned char* relb =
-      (EXTRACT && rel_out && lb) ? rel_out + (eb + ib) * N : nullptr;
+  const int hp = padded_h(H);
+  const int nks = (hp + KS - 1) / KS;  // slices per chunk
+  const int steps = (n + S - 1) / S * nks;
+  const bool vec = (H & 3) == 0;
 
-  auto stage = [&](int c) {  // chunk c of the real sources into buffer c&1
-    const int s0 = c * CHUNK, rc = min(CHUNK, n - s0);
-    float* buf = src_s + (c & 1) * CHUNK * hs;
-    if ((H & 3) == 0) {
-      const int hv = H >> 2;
-      for (int e = tid; e < rc * hv; e += blockDim.x) {
-        const int r = e / hv, v = e - r * hv;
-        __pipeline_memcpy_async(
-            buf + r * hs + 4 * v,
-            hb + static_cast<size_t>(pe[s0 + r]) * H + 4 * v, 16);
+  // Step st (chunk c = st / nks, slice ks) into stage st % NSTAGE; with a
+  // chunk's first slice its sq and t into meta (c % NSTAGE) and the ids of
+  // chunk c + 2 into the ids ring.  Each chunk's ids land two chunks ahead
+  // of their use, so the staging of a slice reads them from shared memory;
+  // NIDS chunks of ids outlast every reader (the selection two chunks on).
+  int c_in = 0, ks_in = 0;  // the next step to stage
+  auto stage = [&](int st) {
+    if (st < steps) {
+      const int c = c_in, ks = ks_in;
+      const int s0 = c * S, rs = min(S, n - s0);
+      const int k0 = ks * KS, nv = min(KS, hp - k0) / 4;
+      const int* cid = ids + (c % NIDS) * S;
+      float* buf = ring + (st % NSTAGE) * (Q + S) * KST;
+#pragma unroll
+      for (int e = tid; e < (Q + S) * (KS / 4); e += THREADS) {
+        const int r = e / (KS / 4), v = e % (KS / 4);
+        if (v >= nv || r >= Q + rs) continue;  // past h, or past the event
+        const int j = r < Q ? qid_s[r] : cid[r - Q];
+        const float* src = hb + static_cast<size_t>(j) * H + k0 + 4 * v;
+        float* dst = buf + r * KST + 4 * v;
+        if (vec) {
+          __pipeline_memcpy_async(dst, src, 16);
+        } else {
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            if (k0 + 4 * v + x < H)
+              __pipeline_memcpy_async(dst + x, src + x, sizeof(float));
+            else
+              dst[x] = 0.f;
+          }
+        }
       }
-    } else {
-      for (int e = tid; e < rc * H; e += blockDim.x) {
-        const int r = e / H, v = e - r * H;
-        __pipeline_memcpy_async(
-            buf + r * hs + v, hb + static_cast<size_t>(pe[s0 + r]) * H + v,
-            sizeof(float));
+      if (ks == 0 && tid < S) {
+        if (tid < rs) {
+          float* m = meta + (c % NSTAGE) * 2 * S;
+          const int j = cid[tid];
+          __pipeline_memcpy_async(m + tid, sq + eb + j, sizeof(float));
+          if (EXTRACT && directed)  // no d2 passes a source's -inf
+            m[S + tid] = -CUDART_INF_F;
+          else if (EXTRACT)
+            __pipeline_memcpy_async(m + S + tid, t_in + eb + j,
+                                    sizeof(float));
+        }
+        const int s2 = s0 + 2 * S + tid;
+        if (s2 < n)
+          __pipeline_memcpy_async(ids + ((c + 2) % NIDS) * S + tid, pe + s2,
+                                  sizeof(int));
       }
-    }
-    if (tid < rc) {
-      const int j = pe[s0 + tid];
-      __pipeline_memcpy_async(sq_s + (c & 1) * CHUNK + tid, sq + eb + j,
-                              sizeof(float));
-      if (EXTRACT && directed)  // d2 >= 0 never passes a source's -1
-        tj_s[(c & 1) * CHUNK + tid] = -1.f;
-      else if (EXTRACT)
-        __pipeline_memcpy_async(tj_s + (c & 1) * CHUNK + tid, t_in + eb + j,
-                                sizeof(float));
-      id_s[(c & 1) * CHUNK + tid] = j;
+      if (++ks_in == nks) {
+        ks_in = 0;
+        ++c_in;
+      }
     }
     __pipeline_commit();
   };
 
-  // d2 of query row q (compact position p0 + q) against source s
-  auto put = [&](int q, float dot, float sqi, float ti, unsigned char* relq,
-                 int s, float sqj, float tj, int j) {
-    const float d2 =
-        fmaxf(__fsub_rn(__fadd_rn(sqi, sqj), __fmul_rn(2.f, dot)), 0.f);
-    const bool other = s != p0 + q;
-    if (EXTRACT) {
-      const bool u = other && (d2 <= ti || d2 <= tj);
-      if (u && relq) relq[j] = 1;
-      rows[q * N + s] = u ? d2 : CUDART_INF_F;
+  float thr[TR];  // each row's largest kept d2, a filter that no key of
+                  // its list fails (+inf until the list is full)
+  int qn[TR];     // each row's queued keys
+#pragma unroll
+  for (int r = 0; r < TR; ++r) {
+    thr[r] = CUDART_INF_F;
+    qn[r] = 0;
+  }
+  // a queue as long as the list, 16 to 32 keys: a merge costs O(kc + qcap)
+  // per key, and a longer queue lowers the filter later
+  const int qcap = min(max(kc, GX), QCAP);
+  const unsigned mine = lane < GX ? 0x0000ffffu : 0xffff0000u;  // half-warp
+  const unsigned below = mine & ((1u << lane) - 1u);
+  float acc[TR][TC];
+
+  for (int st = 0; st < NSTAGE - 1; ++st) stage(st);
+  int c = 0, ks = 0;  // the step computed
+  for (int st = 0; st < steps; ++st) {
+    __pipeline_wait_prior(NSTAGE - 2);  // step st has landed (this thread's)
+    __syncthreads();                    // ... everyone's; stage st-1 is free
+    stage(st + NSTAGE - 1);
+    const float* buf = ring + (st % NSTAGE) * (Q + S) * KST;
+    const float* qrow = buf + qy * TR * KST;  // this thread's rows qy*TR + r
+    const float* srow = buf + (Q + hl) * KST;  // and sources hl + GX*cc
+    if (ks == 0) {
+#pragma unroll
+      for (int r = 0; r < TR; ++r)
+#pragma unroll
+        for (int cc = 0; cc < TC; ++cc) acc[r][cc] = 0.f;
+    }
+    const int nv = min(KS, hp - ks * KS) / 4;
+    if (nv == KS / 4) {
+#pragma unroll
+      for (int v = 0; v < KS / 4; ++v) dot_quad(acc, qrow, srow, v);
     } else {
-      rows[q * N + s] = other ? d2 : CUDART_INF_F;
+      for (int v = 0; v < nv; ++v) dot_quad(acc, qrow, srow, v);
     }
-  };
+    const int cs = c;  // the chunk of this step
+    if (++ks < nks) continue;
+    ks = 0;
+    ++c;
 
-  const int nch = (n + CHUNK - 1) / CHUNK;
-  stage(0);
-  for (int c = 0; c < nch; ++c) {
-    if (c + 1 < nch) {
-      stage(c + 1);              // its buffer was freed by the last barrier
-      __pipeline_wait_prior(1);  // chunk c has landed (this thread's part)
-    } else {
-      __pipeline_wait_prior(0);
+    // The chunk is complete.  Each pair's x = (sq_i + sq_j) - 2 dot (its d2
+    // is max(x, 0), so x <= t iff d2 <= t for every t >= 0) is filtered
+    // against its row's largest kept d2, after the member test in the
+    // extraction (a directed source's threshold is -inf).
+    const float* m = meta + (cs % NSTAGE) * 2 * S;
+    const int* cid = ids + (cs % NIDS) * S;
+    float sqj[TC], tj[TC];
+    int sp[TC];  // the sources' positions in perm
+#pragma unroll
+    for (int cc = 0; cc < TC; ++cc) {
+      const int o = hl + GX * cc;
+      sqj[cc] = m[o];
+      tj[cc] = EXTRACT ? m[S + o] : 0.f;
+      sp[cc] = cs * S + o;
     }
-    __syncthreads();             // ... and every thread's part
-    const int s = c * CHUNK + sl;
-    if (la && s < n) {
-      const int o = (c & 1) * CHUNK + sl;
-      const float4* x =
-          reinterpret_cast<const float4*>(src_s + (c & 1) * CHUNK * hs
-                                          + sl * hs);
-      const float4* ua = reinterpret_cast<const float4*>(q_s + qa * hs);
-      const float4* ub = reinterpret_cast<const float4*>(q_s + qb * hs);
-      float da = 0.f, db = 0.f;
-#pragma unroll 4
-      for (int v = 0; v < hp / 4; ++v) {
-        const float4 xv = x[v], a = ua[v], bq = ub[v];
-        da = __fadd_rn(da, __fmul_rn(a.x, xv.x));
-        db = __fadd_rn(db, __fmul_rn(bq.x, xv.x));
-        da = __fadd_rn(da, __fmul_rn(a.y, xv.y));
-        db = __fadd_rn(db, __fmul_rn(bq.y, xv.y));
-        da = __fadd_rn(da, __fmul_rn(a.z, xv.z));
-        db = __fadd_rn(db, __fmul_rn(bq.z, xv.z));
-        da = __fadd_rn(da, __fmul_rn(a.w, xv.w));
-        db = __fadd_rn(db, __fmul_rn(bq.w, xv.w));
-      }
-      const float sqj = sq_s[o];
-      const float tj = EXTRACT ? tj_s[o] : 0.f;
-      const int j = id_s[o];
-      put(qa, da, sqa, ta, rela, s, sqj, tj, j);
-      if (lb) put(qb, db, sqb, tb, relb, s, sqj, tj, j);
-    }
-    __syncthreads();             // buffer c&1 is free for chunk c+2
-  }
-
-  // selection: warp w takes query row w; no block-wide barrier below
-  const int p = p0 + warp;
-  if (p >= N) return;
-  if (warp >= nq) {
-    pad_row(p);
-    return;
-  }
-  float* row = rows + warp * N;
-  const size_t i = eb + pe[p];
-  if (!EXTRACT) {
-    float last = CUDART_INF_F;
-    const int got = select_smallest(row, n, lane, kc,
-                                    [&](int, float m, int) { last = m; });
-    if (lane == 0) t_out[i] = got == kc ? last : CUDART_INF_F;
-    return;
-  }
-
-  int* io = idx_out + i * kc;
-  float* dv = d2v_out + i * kc;
-  // the row's members as (d2 bits, position) keys: d2 >= 0, so the keys
-  // order as (d2, j) does, and positions are distinct
-  unsigned long long* list = lists + warp * LIST;
-  int m = 0;
-  for (int base = 0; base < n; base += 32) {
-    const int s = base + lane;
-    const float v = s < n ? row[s] : CUDART_INF_F;
-    const bool mem = v < CUDART_INF_F;
-    const unsigned bal = __ballot_sync(FULL, mem);
-    const int at = m + __popc(bal & ((1u << lane) - 1u));
-    if (mem && at < LIST)
-      list[at] = (static_cast<unsigned long long>(__float_as_uint(v)) << 32)
-                 | static_cast<unsigned>(s);
-    m += __popc(bal);
-  }
-  __syncwarp();
-  int filled;
-  if (m <= LIST) {  // each member's rank among the members is its slot
-    for (int e = lane; e < m; e += 32) {
-      const unsigned long long key = list[e];
-      int r = 0;
-      for (int f = 0; f < m; ++f) r += list[f] < key;
-      if (r < kc) {
-        io[r] = pe[static_cast<int>(key & 0xffffffffu)];
-        dv[r] = __uint_as_float(static_cast<unsigned>(key >> 32));
+    unsigned fb = 0;  // bit r*TC+cc: the pair passes the filter
+#pragma unroll
+    for (int r = 0; r < TR; ++r) {
+      const int row = qy * TR + r;
+      const float sqi = qsq_s[row], ti = EXTRACT ? qt_s[row] : 0.f;
+#pragma unroll
+      for (int cc = 0; cc < TC; ++cc) {
+        const float x =
+            __fsub_rn(__fadd_rn(sqi, sqj[cc]), __fmul_rn(2.f, acc[r][cc]));
+        acc[r][cc] = x;
+        bool f = x <= thr[r];
+        if (EXTRACT) f = f && (x <= ti || x <= tj[cc]);
+        fb |= f ? 1u << (r * TC + cc) : 0u;
       }
     }
-    filled = min(m, kc);
-  } else {  // a hub: cap rounds over the whole row
-    filled = select_smallest(row, n, lane, kc, [&](int c, float v, int s) {
-      if (lane == 0) {
-        io[c] = pe[s];
-        dv[c] = v;
+    if (EXTRACT && rel_out) {  // every member's byte (the dense path only)
+#pragma unroll
+      for (int r = 0; r < TR; ++r) {
+        const int row = qy * TR + r;
+#pragma unroll
+        for (int cc = 0; cc < TC; ++cc) {
+          const float d2 = fmaxf(acc[r][cc], 0.f);
+          if (row < nq && sp[cc] < n && sp[cc] != p0 + row
+              && (d2 <= qt_s[row] || d2 <= tj[cc]))
+            rel_out[(eb + qid_s[row]) * N + cid[hl + GX * cc]] = 1;
+        }
       }
-    });
+    }
+    const unsigned any = __reduce_or_sync(FULL, fb);
+    if (any == 0) continue;
+
+    // The pairs that passed, of real rows and sources other than the row,
+    // whose key is below the row's largest kept key, into the row's queue
+    // by ballots, one tile column at a time; where a queue could overflow,
+    // it is merged into its list first.
+#pragma unroll
+    for (int r = 0; r < TR; ++r) {
+      if (!((any >> (r * TC)) & 0xfu)) continue;
+      const int row = qy * TR + r;
+      u64* lr = lists + row * kc;
+      u64* qr = queues + row * QCAP;
+      u64 top = lr[kc - 1];
+#pragma unroll
+      for (int cc = 0; cc < TC; ++cc) {
+        const int bit = r * TC + cc;
+        if (!((any >> bit) & 1u)) continue;
+        const u64 key = make_key(fmaxf(acc[r][cc], 0.f), sp[cc]);
+        bool f = ((fb >> bit) & 1u) && row < nq && sp[cc] < n
+                 && sp[cc] != p0 + row && key < top;
+        unsigned bal = __ballot_sync(FULL, f);
+        if (__any_sync(FULL, qn[r] + __popc(bal & mine) > qcap)) {
+          top = merge(lr, qr, kc, qn[r], hl);
+          thr[r] = key_d2(top);
+          qn[r] = 0;
+          f = f && key < top;
+          bal = __ballot_sync(FULL, f);
+        }
+        if (f) qr[qn[r] + __popc(bal & below)] = key;
+        qn[r] += __popc(bal & mine);
+      }
+    }
   }
-  for (int c = filled + lane; c < kc; c += 32) {
-    io[c] = 0;
-    dv[c] = CUDART_INF_F;
+
+  // the queues' last keys, then each row's outputs from its list
+#pragma unroll
+  for (int r = 0; r < TR; ++r) {
+    if (__any_sync(FULL, qn[r] > 0))
+      merge(lists + (qy * TR + r) * kc, queues + (qy * TR + r) * QCAP, kc,
+            qn[r], hl);
+  }
+#pragma unroll
+  for (int r = 0; r < TR; ++r) {
+    const int row = qy * TR + r;
+    if (p0 + row >= N) continue;
+    if (row >= nq) {
+      pad_row(p0 + row, hl, GX);
+      continue;
+    }
+    const size_t i = eb + qid_s[row];
+    const u64* lr = lists + row * kc;
+    if (!EXTRACT) {  // the k-th key's d2; +inf if the row ran dry
+      if (hl == 0) t_out[i] = key_d2(lr[kc - 1]);
+      continue;
+    }
+    for (int e = hl; e < kc; e += GX) {
+      const u64 key = lr[e];
+      const bool fin = static_cast<unsigned>(key >> 32) < INF_BITS;
+      idx_out[i * kc + e] = fin ? pe[static_cast<unsigned>(key)] : 0;
+      d2v_out[i * kc + e] = fin ? key_d2(key) : CUDART_INF_F;
+    }
   }
 }
 
@@ -467,14 +568,19 @@ cudaError_t launch(const float* h, const float* sq, const float* t_in,
                    const int* perm, const int* cnt, float* t_out, int* idx,
                    float* d2v, unsigned char* rel, int B, int N, int H,
                    int kc, cudaStream_t stream) {
-  const int R = rows_per_block(N);
-  const size_t smem = layout(EXTRACT, R, N, H).total;
-  const dim3 grid((N + R - 1) / R, B);
-  const cudaError_t err = cudaFuncSetAttribute(
+  const int kabs = kc < 0 ? -kc : kc;
+  if (kabs < 1 || kabs > MAX_KC) return cudaErrorInvalidValue;
+  const size_t smem = layout(kabs).total;
+  cudaError_t err = cudaFuncSetAttribute(
       knn_kernel<EXTRACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(knn_kernel<EXTRACT>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  knn_kernel<EXTRACT><<<grid, R * 32, smem, stream>>>(
+  const dim3 grid((N + Q - 1) / Q, B);
+  knn_kernel<EXTRACT><<<grid, THREADS, smem, stream>>>(
       h, sq, t_in, perm, cnt, t_out, idx, d2v, rel, N, H, kc);
   return cudaGetLastError();
 }
@@ -490,7 +596,7 @@ cudaError_t compact(const unsigned char* mask, int* perm, int* cnt, int B,
 extern "C" {
 
 // t [B,N] and the squared norms sq [B,N] from h [B,N,H] and mask [B,N];
-// perm [B,N] and cnt [B] are scratch (the compaction).
+// perm [B,N] and cnt [B] are scratch (the compaction).  1 <= k <= 128.
 int knn_kth(const float* h, const unsigned char* mask, float* sq, float* t,
             int* perm, int* cnt, int B, int N, int H, int k, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -509,6 +615,7 @@ int knn_kth(const float* h, const unsigned char* mask, float* sq, float* t,
 // cnt are scratch as for knn_kth.  directed != 0: the relation d2 <= t_i
 // alone.  The flag travels to the kernel as the sign of its cap argument,
 // so the kernels' names and parameter lists stay as they were.
+// 1 <= cap <= 128.
 int knn_extract(const float* h, const unsigned char* mask, const float* t,
                 const float* sq, int* idx, float* d2v, unsigned char* rel,
                 int* perm, int* cnt, int B, int N, int H, int cap,

@@ -16,14 +16,20 @@ from typing import Optional, Tuple
 import torch
 
 from deepmetv2_tpu_torch.ops.cuda import build
-from deepmetv2_tpu_torch.ops.knn_und import (knn_extract_torch,
+from deepmetv2_tpu_torch.ops.knn_und import (TILE, knn_extract_torch,
                                              knn_kth_torch, neighborhood,
                                              supported)
 
-# widest h the kernels take: 8 query rows and two 64-row chunks of sources,
-# all H wide, fit in shared memory beside 64 KB of d² rows (at N <= 8192;
-# a shape past the card's shared memory is refused at launch and raises)
+# widest h the kernels take.  They stream h in 16-feature slices, so their
+# shared memory depends on neither N nor H; what grows with H is the time
+# (one slice more per 16 features), and 256 is twice the widest h a model
+# builds a graph on (ParticleNet's 128).
 MAX_H = 256
+# the largest k and cap: each query row keeps that many keys in shared
+# memory (64 rows a block, 8 bytes a key: 64 KB at 128, where one block
+# fits an SM in place of three at 32); the JAX build's row tile bounds cap
+# alike (ops/knn_und.py:supported)
+MAX_KC = TILE
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
@@ -64,8 +70,8 @@ def knn_kth(h: torch.Tensor, mask: torch.Tensor, k: int
         return knn_kth_torch(h, mask, k)
     h, mask = _prepare("knn_kth", h, mask)
     B, N, H = h.shape
-    if not 1 <= k <= N:
-        raise ValueError(f"knn_kth: k={k} outside 1..N={N}")
+    if not 1 <= k <= min(N, MAX_KC):
+        raise ValueError(f"knn_kth: k={k} outside 1..min(N={N}, {MAX_KC})")
     sq = torch.empty((B, N), dtype=torch.float32, device=h.device)
     t = torch.empty_like(sq)
     perm, cnt = _scratch(B, N, h.device)
@@ -94,8 +100,8 @@ def knn_extract(h: torch.Tensor, mask: torch.Tensor, t: torch.Tensor,
         return knn_extract_torch(h, mask, t, sq, cap, want_rel, directed)
     h, mask, t, sq = _prepare("knn_extract", h, mask, t, sq)
     B, N, H = h.shape
-    if not 1 <= cap:
-        raise ValueError(f"knn_extract: cap={cap} must be positive")
+    if not 1 <= cap <= MAX_KC:
+        raise ValueError(f"knn_extract: cap={cap} outside 1..{MAX_KC}")
     dev = h.device
     idx = torch.empty((B, N, cap), dtype=torch.int32, device=dev)
     d2v = torch.empty((B, N, cap), dtype=torch.float32, device=dev)

@@ -21,3 +21,8 @@ jax.config.update("jax_enable_x64", False)
 # Persistent compilation cache: keeps repeated pytest runs fast.
 jax.config.update("jax_compilation_cache_dir", "/tmp/jax_test_cache")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skips without one")

@@ -44,3 +44,34 @@ def test_probe_needs_a_gpu(capsys):
         pytest.skip("a CUDA GPU is present: the probe runs")
     assert kb.main() == 1
     assert "no CUDA GPU" in capsys.readouterr().err
+
+
+def test_cell_inputs_are_the_cells_events():
+    from deepmetv2_tpu_torch.data import synthetic_events
+
+    h, mask = kb.cell_inputs("cpu", 6144)
+    n = mask.sum(dim=1)
+    assert h.shape == (40, 6144, 64) and mask.dtype == torch.bool
+    assert int(n.min()) >= 500 and int(n.max()) <= 5000
+    # prefix masks, the events' own counts, the same events on every call
+    assert torch.equal(mask, torch.arange(6144)[None] < n[:, None])
+    events = synthetic_events(40, seed=kb.CELL_SEED, n_min=500, n_max=5000)
+    assert n.tolist() == [x.shape[0] for x, _ in events]
+    h2, mask2 = kb.cell_inputs("cpu", 8192)
+    assert torch.equal(mask2[:, :6144], mask) and not mask2[:, 6144:].any()
+    assert torch.equal(h2[:, :6144][mask], h[mask])
+
+
+def test_count_summary_reads_real_rows_only():
+    mask = torch.zeros((2, 8), dtype=torch.bool)
+    mask[0, :4] = True
+    mask[1, :3] = True
+    counts = torch.zeros((2, 8, 2), dtype=torch.int32)
+    counts[0, :4, 0] = torch.tensor([3, 2, 1, 0])
+    counts[0, :4, 1] = torch.tensor([1, 2, 1, 1])
+    counts[1, :3] = torch.tensor([[2, 1], [2, 3], [0, 1]])
+    counts[0, 5] = 99                    # a padded row: not read
+    got = kb.count_summary(counts, mask)
+    assert got["pass_share"] == pytest.approx(10 / (4 * 3 + 3 * 2))
+    assert got["merges_mean"] == pytest.approx(10 / 7)
+    assert got["merges_max"] == 3
