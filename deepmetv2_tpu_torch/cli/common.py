@@ -11,6 +11,7 @@ import sys
 import torch
 
 from deepmetv2_tpu_torch.config import Config
+from deepmetv2_tpu_torch.train.family import DEFAULT, FAMILIES
 
 
 def resolve_device(name: str) -> torch.device:
@@ -29,9 +30,9 @@ def resolve_device(name: str) -> torch.device:
 
 
 def load_run_config(ckpt_dir: str) -> Config:
-    """Defaults with the model sections of the run's ``config.json``
-    grafted in; graph and data sections are re-derived by each CLI from
-    its own input."""
+    """Defaults with the model sections of the run's ``config.json`` (each
+    family's) grafted in; graph and data sections are re-derived by each
+    CLI from its own input."""
     path = osp.join(ckpt_dir, "config.json")
     if not osp.exists(path):
         print(f"note: no {path}; interpreting the checkpoint with DEFAULT "
@@ -39,8 +40,8 @@ def load_run_config(ckpt_dir: str) -> Config:
         return Config()
     with open(path) as f:
         run = Config.from_json(f.read())
-    return dataclasses.replace(Config(), model=run.model, drn=run.drn,
-                               particlenet=run.particlenet)
+    return dataclasses.replace(Config(), **{
+        f.section: getattr(run, f.section) for f in FAMILIES.values()})
 
 
 def apply_graph_mode(cfg: Config, args, all_events, presorted: bool = False,
@@ -80,17 +81,16 @@ def graph_mode_line(cfg: Config, order: str, **loaders) -> str:
 
 def check_from_torch(args) -> None:
     """``--from_torch`` reads GraphMETNetwork state_dicts only."""
-    if args.from_torch and args.model != "graphmet":
+    if args.from_torch and not FAMILIES[args.model].from_torch:
         raise SystemExit(
             "--from_torch checkpoints are GraphMETNetwork state_dicts "
             "(reference model/net.py:41-43); use --model graphmet")
 
 
 def load_model_for_eval(args, cfg: Config, ckpt_dir: str, device):
-    """(model, eval_step) from a reference ``.pth.tar`` (``--from_torch``,
-    GraphMET only) or a native ``.ckpt`` of either package, for ``--model
-    graphmet`` (GraphMET), ``--model drn`` (DRN) or ``--model
-    particlenet``."""
+    """(model, eval_step) of the family ``--model`` from a reference
+    ``.pth.tar`` (``--from_torch``, GraphMET only) or a native ``.ckpt`` of
+    either package."""
     from deepmetv2_tpu_torch.train.checkpoint import load_checkpoint
 
     check_from_torch(args)
@@ -102,24 +102,8 @@ def load_model_for_eval(args, cfg: Config, ckpt_dir: str, device):
     else:
         payload = load_checkpoint(osp.join(ckpt_dir,
                                            args.restore_file + ".ckpt"))
-    if args.model == "drn":
-        from deepmetv2_tpu_torch.models.drn import DRN
-        from deepmetv2_tpu_torch.train.step import make_drn_eval_step
-
-        model = DRN(cfg.drn, device=device)
-        step = make_drn_eval_step(cfg)
-    elif args.model == "particlenet":
-        from deepmetv2_tpu_torch.models.particlenet import ParticleNet
-        from deepmetv2_tpu_torch.train.step import make_pn_eval_step
-
-        model = ParticleNet(cfg.particlenet, device=device)
-        step = make_pn_eval_step(cfg)
-    else:
-        from deepmetv2_tpu_torch.models.graph_met import GraphMET
-        from deepmetv2_tpu_torch.train.step import make_eval_step
-
-        model = GraphMET(cfg.model, device=device)
-        step = make_eval_step(cfg)
+    fam = FAMILIES[args.model]
+    model, step = fam.build(cfg, device=device), fam.eval_step(cfg)
     model.params_from_jax(payload["params"], payload["bn_state"]).eval()
     return model, step
 
@@ -135,8 +119,7 @@ def add_common_flags(p) -> None:
     p.add_argument("--graph_mode", choices=["window", "neighbor_list"],
                    default="window")
     p.add_argument("--from_torch", default=None)
-    p.add_argument("--model", choices=["graphmet", "drn", "particlenet"],
-                   default="graphmet")
+    p.add_argument("--model", choices=list(FAMILIES), default=DEFAULT)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions of the kernels)")

@@ -23,10 +23,9 @@ import torch
 from deepmetv2_tpu_torch.cli.common import (load_model_for_eval,
                                             load_run_config, resolve_device)
 from deepmetv2_tpu_torch.data import fetch_dataloader, synthetic_events
-from deepmetv2_tpu_torch.models.graph_met import GraphMET
 from deepmetv2_tpu_torch.plotting import (compute_weight_summary,
                                           plot_weight_summary)
-from deepmetv2_tpu_torch.train.step import make_eval_step
+from deepmetv2_tpu_torch.train.family import DEFAULT, FAMILIES
 from deepmetv2_tpu_torch.utils import artifacts
 
 
@@ -44,7 +43,7 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions of the kernels)")
-    p.set_defaults(model="graphmet")
+    p.set_defaults(model=DEFAULT)     # GraphMET: per-candidate weights
     args = p.parse_args(argv)
     device = resolve_device(args.device)
 
@@ -59,9 +58,10 @@ def main(argv=None) -> int:
     if args.restore_file or args.from_torch:
         model, eval_step = load_model_for_eval(args, cfg, args.ckpts, device)
     else:
-        model = GraphMET(cfg.model, device=device,
-                         generator=torch.Generator().manual_seed(0)).eval()
-        eval_step = make_eval_step(cfg)
+        fam = FAMILIES[args.model]
+        model = fam.build(cfg, device=device,
+                          generator=torch.Generator().manual_seed(0)).eval()
+        eval_step = fam.eval_step(cfg)
     summary = compute_weight_summary(eval_step, model, loaders["test"],
                                      device)
     # next to the checkpoints (the reference wrote weight.plt into the

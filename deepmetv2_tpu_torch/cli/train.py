@@ -50,7 +50,6 @@ import os
 import shutil
 import tempfile
 
-import numpy as np
 import torch
 
 from deepmetv2_tpu_torch.cli.common import (apply_graph_mode,
@@ -58,10 +57,8 @@ from deepmetv2_tpu_torch.cli.common import (apply_graph_mode,
                                             graph_mode_line, resolve_device)
 from deepmetv2_tpu_torch.config import Config, DataConfig
 from deepmetv2_tpu_torch.data import fetch_dataloader, synthetic_events
-from deepmetv2_tpu_torch.models.drn import DRN
-from deepmetv2_tpu_torch.models.graph_met import GraphMET
-from deepmetv2_tpu_torch.models.particlenet import ParticleNet
 from deepmetv2_tpu_torch.parallel import multihost
+from deepmetv2_tpu_torch.train.family import DEFAULT, FAMILIES
 from deepmetv2_tpu_torch.train.loop import feed_line, fit
 from deepmetv2_tpu_torch.train.step import make_optimizer
 from deepmetv2_tpu_torch.utils.cache import enable_compilation_cache
@@ -97,8 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions of the kernels)")
-    p.add_argument("--model", choices=["graphmet", "drn", "particlenet"],
-                   default="graphmet",
+    p.add_argument("--model", choices=list(FAMILIES), default=DEFAULT,
                    help="model family: the weight regressor GraphMET, the "
                         "DynamicReductionNetwork or ParticleNet")
     p.add_argument("--drn_aggr", choices=["add", "max", "mean"], default=None,
@@ -155,16 +151,18 @@ def check_flags(args):
     divide over (the JAX CLI's checks, cli/train.py:194-198, 283-298);
     returns the mesh's (n_data, n_node) or None."""
     dims = parse_mesh(args.mesh)
-    if args.ring_knn and not (args.model == "drn" and dims and dims[1] > 1):
+    fam = FAMILIES[args.model]
+    if args.ring_knn and not (fam.mesh and fam.mesh.ring_knn and dims
+                              and dims[1] > 1):
         raise SystemExit("--ring_knn requires --model drn and a "
                          "node-sharded mesh (--mesh DxN, N > 1)")
     check_from_torch(args)
-    if dims and args.model == "particlenet":
-        raise SystemExit("--mesh: ParticleNet trains on one device")
+    if dims and fam.mesh is None:
+        raise SystemExit(f"--mesh: --model {args.model} trains on one "
+                         "device")
     if dims:
         n_data, n_node = dims
-        if (n_node > 1 and args.model == "graphmet"
-                and args.graph_mode != "window"):
+        if n_node > 1 and fam.presorts and args.graph_mode != "window":
             raise SystemExit(f"--mesh {args.mesh}: edge partitioning runs "
                              "window mode (--graph_mode window)")
         if args.batch_size % n_data:
@@ -175,27 +173,6 @@ def check_flags(args):
             raise SystemExit(f"--mesh: node buckets {bad} not divisible by "
                              f"node axis {n_node}")
     return dims
-
-
-def drn_data_init(dataset, indices):
-    """``(norm, met_bias)`` from the training split, as the JAX CLI derives
-    them (cli/train.py:246-277): ``norm`` 1/std of each input feature over
-    every training candidate (one streaming float64 pass; 1 where the std
-    is below 1e-6), ``met_bias`` the mean |genMET| of the training events
-    (0 for an empty split)."""
-    qts = [float(np.hypot(dataset[int(i)][1][0], dataset[int(i)][1][1]))
-           for i in indices]
-    met_bias = float(np.mean(qts)) if qts else 0.0
-    n_feat = dataset[int(indices[0])][0].shape[1]
-    cnt, s1, s2 = 0, np.zeros(n_feat), np.zeros(n_feat)
-    for i in indices:
-        x = dataset[int(i)][0]
-        cnt += x.shape[0]
-        s1 += x.sum(axis=0)
-        s2 += (x.astype(np.float64) ** 2).sum(axis=0)
-    var = np.maximum(s2 / cnt - (s1 / cnt) ** 2, 0.0)
-    std = np.sqrt(var)
-    return tuple(1.0 / np.where(std > 1e-6, std, 1.0)), met_bias
 
 
 def main(argv=None) -> int:
@@ -280,27 +257,19 @@ def run(args, device, mesh=None) -> int:
         train=dataclasses.replace(cfg.train, **train),
         drn=dataclasses.replace(cfg.drn, **drn),
         model=dataclasses.replace(cfg.model, **dtype))
-    is_drn = args.model == "drn"
-    if is_drn and cfg.drn.head == "polar":
-        # the JAX CLI's warning (cli/train.py:181-189): on its 150-epoch
-        # synthetic run the softplus MET went to 0 and the sigmoid phi to pi
-        # within one epoch, and training froze
-        say("warning: the polar DRN head saturates easily and can freeze "
-            "training (softplus MET -> 0, sigmoid phi -> pi); "
-            "--drn_head cartesian is the robust choice")
-
-    # GraphMET in window mode: the loaders presort each batch once on the
-    # host (memoized) and the config is marked presorted, so the steps never
-    # sort on the device.  neighbor_list mode needs no order, and the DRN
-    # builds its own graphs: no presort.
+    fam = FAMILIES[args.model]
+    # A family that presorts (GraphMET), in window mode: the loaders
+    # presort each batch once on the host (memoized) and the config is
+    # marked presorted, so the steps never sort on the device.
+    # neighbor_list mode needs no order, and the DRN and ParticleNet build
+    # their own graphs: no presort.
     # Edge-partitioned runs sort in eta order by default, which keeps the
     # exchanged halo smallest (the JAX CLI's choice, cli/train.py:207-215).
     sort_mode = args.sort_mode or ("eta" if shard_nodes else "cell")
-    if args.sort_mode == "cell" and shard_nodes and not is_drn:
+    if args.sort_mode == "cell" and shard_nodes and fam.presorts:
         say("note: cell-order edge partitioning exchanges the (wider) cell "
             "span as its halo; 'eta' minimizes the exchanged rows")
-    is_pn = args.model == "particlenet"
-    presort = args.graph_mode == "window" and not (is_drn or is_pn)
+    presort = args.graph_mode == "window" and fam.presorts
     kw = dict(batch_size=cfg.data.batch_size,
               validation_split=cfg.data.validation_split,
               buckets=cfg.data.node_buckets, mode=args.mode,
@@ -321,10 +290,7 @@ def run(args, device, mesh=None) -> int:
     say("device:", device,
         torch.cuda.get_device_name(device) if device.type == "cuda" else "")
     if mesh is not None:
-        how = ("" if not shard_nodes
-               else " (edge-partitioned)" if not is_drn
-               else " (node-sharded DRN, "
-               f"{'ring' if cfg.drn.ring_knn else 'all-gather'} kNN)")
+        how = f" ({fam.mesh.node_form(cfg)})" if shard_nodes else ""
         say(f"mesh: {mesh.describe()}{how}")
         if cfg.model.compute_dtype != "float32":
             say(f"note: mesh steps compute float32 whatever compute_dtype "
@@ -332,30 +298,12 @@ def run(args, device, mesh=None) -> int:
     say(feed_line(cfg, device, mesh))
 
     gen = torch.Generator().manual_seed(args.seed)
-    if is_drn:
-        norm, met_bias = drn_data_init(loaders["train"].dataset,
-                                       loaders["train"].indices)
-        if met_bias > 0:
-            cfg = dataclasses.replace(
-                cfg, drn=dataclasses.replace(cfg.drn, output_scale=met_bias))
-        say(f"drn: output scale = mean |genMET| = {met_bias:.1f}; "
-              f"datanorm from training-set feature stds")
-        model = DRN(cfg.drn, generator=gen, norm=norm, met_bias=met_bias)
-    elif is_pn:
-        _, met_bias = drn_data_init(loaders["train"].dataset,
-                                    loaders["train"].indices)
-        if met_bias > 0:
-            cfg = dataclasses.replace(cfg, particlenet=dataclasses.replace(
-                cfg.particlenet, output_scale=met_bias))
-        say(f"particlenet: output scale = mean |genMET| = {met_bias:.1f}")
-        model = ParticleNet(cfg.particlenet, generator=gen)
-    else:
-        model = GraphMET(cfg.model, generator=gen)
-        if args.from_torch:
-            from deepmetv2_tpu_torch.compat import import_torch_checkpoint
+    cfg, model = fam.init(cfg, loaders["train"], gen, say)
+    if args.from_torch:
+        from deepmetv2_tpu_torch.compat import import_torch_checkpoint
 
-            params, bn_state, _ = import_torch_checkpoint(args.from_torch)
-            model.params_from_jax(params, bn_state)
+        params, bn_state, _ = import_torch_checkpoint(args.from_torch)
+        model.params_from_jax(params, bn_state)
     model.to(device)
     optimizer = make_optimizer(cfg, model)
     fit(model, optimizer, cfg, loaders["train"], loaders["test"], args.ckpts,

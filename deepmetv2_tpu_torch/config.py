@@ -158,16 +158,10 @@ class Config:
 
     @staticmethod
     def from_json(s: str) -> "Config":
+        """Every section of ``Config`` that ``s`` holds, built by its class
+        (the field's default factory); the other keys are ignored."""
         raw = json.loads(s)
-        sub = {
-            "graph": GraphConfig, "model": ModelConfig, "drn": DRNConfig,
-            "particlenet": ParticleNetConfig, "optim": OptimConfig,
-            "data": DataConfig, "train": TrainConfig,
-            "mesh": MeshConfig,
-        }
-        kwargs = {}
-        for key, cls in sub.items():
-            if key in raw:
-                d = {k: _tuples(v) for k, v in raw[key].items()}
-                kwargs[key] = cls(**d)
-        return Config(**kwargs)
+        return Config(**{
+            f.name: f.default_factory(**{k: _tuples(v)
+                                         for k, v in raw[f.name].items()})
+            for f in dataclasses.fields(Config) if f.name in raw})

@@ -53,8 +53,8 @@ from deepmetv2_tpu_torch.parallel.mesh import shard_batch
 from deepmetv2_tpu_torch.train.loss import (drn_met_vector, drn_per_event,
                                             met_per_event, real_event_total,
                                             weighted_met)
-from deepmetv2_tpu_torch.train.step import (build_graph, clip_by_global_norm,
-                                            eval_step_terms)
+from deepmetv2_tpu_torch.train.family import DEFAULT, mesh_forms
+from deepmetv2_tpu_torch.train.step import build_graph, clip_by_global_norm
 
 # The DRN's forms on a mesh: those the JAX package's force_xla_window picks
 DRN_MESH_FORCES = dict(graph_force="composed", conv_force="xla")
@@ -108,33 +108,50 @@ def mesh_step(cfg: Config, mesh, objective: Callable, context: Callable,
     return train_step
 
 
-def dp_objective(cfg: Config, mesh, family: str = "graphmet") -> Callable:
-    """``(model, local batch) -> (share, share)`` of either family."""
+def graphmet_dp_objective(cfg: Config, mesh) -> Callable:
+    """GraphMET's ``(model, local batch) -> (share, share)``."""
 
-    def graphmet(model, batch: EventBatch):
+    def objective(model, batch: EventBatch):
         batch, graph = build_graph(batch, cfg)
         w = net_apply(model, batch, graph)
         share = event_share(*real_event_total(
             met_per_event(*weighted_met(w, batch), batch), batch), mesh)
         return share, share
 
-    def drn(model, batch: EventBatch):
+    return objective
+
+
+def drn_dp_objective(cfg: Config, mesh) -> Callable:
+    """The DRN's ``(model, local batch) -> (share, share)``."""
+
+    def objective(model, batch: EventBatch):
         pred = drn_net_apply(model, batch, **DRN_MESH_FORCES)
         share = event_share(*real_event_total(
             drn_per_event(pred, batch, cfg.drn.head), batch), mesh)
         return share, share
 
-    if family not in ("graphmet", "drn"):
-        raise ValueError(f"unknown model family {family!r}")
-    return drn if family == "drn" else graphmet
+    return objective
 
 
-def make_dp_train_step(cfg: Config, mesh, family: str = "graphmet"
+def drn_dp_eval_terms(cfg: Config) -> Callable:
+    """The DRN's ``(model, local batch) -> (v_met, loss total, real events,
+    None)``, GraphMET's being ``train/step.eval_step_terms``."""
+
+    def terms(model, batch: EventBatch):
+        pred = drn_net_apply(model, batch, **DRN_MESH_FORCES)
+        v_met = drn_met_vector(pred, cfg.drn.head)
+        return (v_met, *real_event_total(
+            drn_per_event(pred, batch, cfg.drn.head), batch), None)
+
+    return terms
+
+
+def make_dp_train_step(cfg: Config, mesh, family: str = DEFAULT
                        ) -> Callable:
     """The data-parallel train step ``(model, optimizer, local batch) ->
     global loss`` of ``family``: batch statistics and gradients over the
     mesh's data group."""
-    return mesh_step(cfg, mesh, dp_objective(cfg, mesh, family),
+    return mesh_step(cfg, mesh, mesh_forms(family).dp_objective(cfg, mesh),
                      pctx.data_parallel, mesh.data_group)
 
 
@@ -149,7 +166,7 @@ def eval_padding(mesh) -> Callable[[EventBatch], EventBatch]:
     return pad
 
 
-def make_dp_eval_step(cfg: Config, mesh, family: str = "graphmet"
+def make_dp_eval_step(cfg: Config, mesh, family: str = DEFAULT
                       ) -> Callable:
     """``(model, padded global batch on the device) -> (v_met [B, 2], loss,
     weights [B, N] or None)``: each rank evaluates its rows of the batch
@@ -157,20 +174,14 @@ def make_dp_eval_step(cfg: Config, mesh, family: str = "graphmet"
     the MET vectors and GraphMET's weights are gathered over the data
     group, and the loss, the mean over the batch's real events, sums the
     ranks' per-event totals and counts."""
-    terms = eval_step_terms(cfg)
+    terms = mesh_forms(family).dp_eval_terms(cfg)
 
     @torch.no_grad()
     def eval_step(model, batch: EventBatch):
         model.eval()
         local = shard_batch(batch, mesh)
         with pctx.data_parallel(mesh):
-            if family == "drn":
-                pred = drn_net_apply(model, local, **DRN_MESH_FORCES)
-                v_local, w = drn_met_vector(pred, cfg.drn.head), None
-                total, n = real_event_total(
-                    drn_per_event(pred, local, cfg.drn.head), local)
-            else:
-                v_local, total, n, w = terms(model, local)
+            v_local, total, n, w = terms(model, local)
         v_met = gather_rows(v_local, mesh, mesh.data_group)
         if w is not None:
             w = gather_rows(w, mesh, mesh.data_group)
@@ -181,7 +192,7 @@ def make_dp_eval_step(cfg: Config, mesh, family: str = "graphmet"
     return eval_step
 
 
-def make_sharded_eval(cfg: Config, mesh, family: str = "graphmet"
+def make_sharded_eval(cfg: Config, mesh, family: str = DEFAULT
                       ) -> Tuple[Callable, Callable]:
     """(eval_step, eval_place) for mesh evaluation (the JAX package's
     ``train/loop.py:make_sharded_eval``): ``eval_place`` pads a host batch

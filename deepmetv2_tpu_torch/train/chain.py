@@ -48,7 +48,8 @@ import torch
 from deepmetv2_tpu_torch.config import Config
 from deepmetv2_tpu_torch.data.batching import EventBatch
 from deepmetv2_tpu_torch.ops.cuda import build
-from deepmetv2_tpu_torch.train.step import family_objective, make_train_step
+from deepmetv2_tpu_torch.train.family import DEFAULT, family, mesh_forms
+from deepmetv2_tpu_torch.train.step import make_train_step
 from deepmetv2_tpu_torch.utils.profiling import annotate
 
 
@@ -179,29 +180,24 @@ class ChainedStep:
 def mesh_train_step(cfg: Config, model: str, mesh,
                     shard_nodes: bool = False) -> Callable:
     """The per-step mesh train step of the family ``model``: with
-    ``shard_nodes`` the edge-partitioned GraphMET step or the node-sharded
-    DRN step, else the data-parallel step of either family."""
-    from deepmetv2_tpu_torch.parallel.dp import make_dp_train_step
-    from deepmetv2_tpu_torch.parallel.dyn import make_drn_ep_train_step
-    from deepmetv2_tpu_torch.parallel.ep import make_ep_train_step
-
+    ``shard_nodes`` its step over each event's nodes split over the node
+    axis (GraphMET edge-partitioned, the DRN node-sharded), else its
+    data-parallel step."""
     if shard_nodes:
-        return (make_drn_ep_train_step(cfg, mesh) if model == "drn"
-                else make_ep_train_step(cfg, mesh))
+        return mesh_forms(model).node_step(cfg, mesh)
+    from deepmetv2_tpu_torch.parallel.dp import make_dp_train_step
+
     return make_dp_train_step(cfg, mesh, model)
 
 
-def make_chained_train_step(cfg: Config, model: str = "graphmet",
+def make_chained_train_step(cfg: Config, model: str = DEFAULT,
                             mesh=None, shard_nodes: bool = False):
     """Chained counterpart of ``train/step.make_train_step`` for the family
-    ``model`` ('graphmet', 'drn' or 'particlenet'): a ``ChainedStep`` over
+    ``model`` (a key of ``train/family.FAMILIES``): a ``ChainedStep`` over
     its train step, or on a ``mesh`` the loop of its mesh step
-    (``mesh_train_step``; GraphMET and the DRN) over the chain's K
-    batches, eagerly, in order."""
-    objective = family_objective(cfg, model)
+    (``mesh_train_step``) over the chain's K batches, eagerly, in order."""
+    objective = family(model).objective(cfg)
     if mesh is not None:
-        if model == "particlenet":
-            raise ValueError("ParticleNet has no mesh step")
         return functools.partial(
             _run_chain, mesh_train_step(cfg, model, mesh, shard_nodes))
     return ChainedStep(make_train_step(cfg, objective))

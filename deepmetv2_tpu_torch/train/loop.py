@@ -29,21 +29,16 @@ from deepmetv2_tpu_torch.config import Config
 from deepmetv2_tpu_torch.data.batching import to_device
 from deepmetv2_tpu_torch.data.loader import (PaddedLoader, device_feed,
                                              prefetch_to_device)
-from deepmetv2_tpu_torch.models.drn import DRN
-from deepmetv2_tpu_torch.models.particlenet import ParticleNet
 from deepmetv2_tpu_torch.train import metrics as metrics_mod
 from deepmetv2_tpu_torch.train.chain import (chain_batches,
                                              make_chained_train_step,
                                              mesh_train_step)
 from deepmetv2_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                   save_checkpoint)
+from deepmetv2_tpu_torch.train.family import of_model
 from deepmetv2_tpu_torch.train.resident import ResidentFeed
 from deepmetv2_tpu_torch.train.schedule import ReduceLROnPlateau
-from deepmetv2_tpu_torch.train.step import (family_objective,
-                                            make_bn_refresh_step,
-                                            make_drn_eval_step,
-                                            make_eval_step,
-                                            make_pn_eval_step,
+from deepmetv2_tpu_torch.train.step import (make_bn_refresh_step,
                                             make_train_step,
                                             set_learning_rate)
 from deepmetv2_tpu_torch.utils import artifacts
@@ -152,12 +147,11 @@ def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
         val_loader: PaddedLoader, ckpt_dir: str, device,
         restore_file: Optional[str] = None, epochs: Optional[int] = None,
         verbose: bool = True, mesh=None, shard_nodes: bool = False) -> None:
-    """The training loop (reference train.py:62-145) for either family:
+    """The training loop (reference train.py:62-145) for each family:
     epochs of train steps, the plateau step on the mean train loss, then
     validation, checkpoints and artifacts.  The model's class picks the
-    steps, as the JAX package's ``model`` argument does (loop.py:260-264):
-    GraphMET's, the DRN's (``models.drn.DRN``) or ParticleNet's
-    (``models.particlenet.ParticleNet``, single device).  The feed is the
+    family's row (``train/family.of_model``) and so its steps, as the JAX
+    package's ``model`` argument does (loop.py:260-264).  The feed is the
     config's, as in the JAX package (loop.py:211-212, 253-258, 276-282):
     chains of ``cfg.train.chain_steps`` steps, and with
     ``cfg.train.resident_feed`` the train epoch (chained) and the
@@ -182,11 +176,9 @@ def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
     verbose = verbose and primary
     if primary:
         os.makedirs(ckpt_dir, exist_ok=True)
-    family = ("drn" if isinstance(model, DRN) else "particlenet"
-              if isinstance(model, ParticleNet) else "graphmet")
-    objective = family_objective(cfg, family)
-    eval_step = {"drn": make_drn_eval_step, "particlenet": make_pn_eval_step,
-                 "graphmet": make_eval_step}[family](cfg)
+    family = of_model(model)
+    objective = family.objective(cfg)
+    eval_step = family.eval_step(cfg)
     chain = max(1, cfg.train.chain_steps)
     train_shard = eval_pad = None
     if mesh is not None:
@@ -194,16 +186,17 @@ def fit(model, optimizer, cfg: Config, train_loader: PaddedLoader,
                                                      make_dp_eval_step)
         from deepmetv2_tpu_torch.parallel.mesh import shard_batch
 
-        train_step = (make_chained_train_step(cfg, family, mesh, shard_nodes)
+        train_step = (make_chained_train_step(cfg, family.name, mesh,
+                                              shard_nodes)
                       if chain > 1 else
-                      mesh_train_step(cfg, family, mesh, shard_nodes))
-        eval_step = make_dp_eval_step(cfg, mesh, family)
+                      mesh_train_step(cfg, family.name, mesh, shard_nodes))
+        eval_step = make_dp_eval_step(cfg, mesh, family.name)
         eval_pad = eval_padding(mesh)
 
         def train_shard(b):
             return shard_batch(b, mesh, shard_nodes, chained=chain > 1)
     else:
-        train_step = (make_chained_train_step(cfg, family) if chain > 1
+        train_step = (make_chained_train_step(cfg, family.name) if chain > 1
                       else make_train_step(cfg, objective))
     refresh_step = make_bn_refresh_step(objective)
     host_train_loader = train_loader        # the BatchNorm refresh reads it

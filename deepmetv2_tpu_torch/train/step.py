@@ -178,16 +178,6 @@ def particlenet_objective(cfg: Config) -> Callable:
     return objective
 
 
-def family_objective(cfg: Config, family: str) -> Callable:
-    """The objective of the model family ``family`` ('graphmet', 'drn' or
-    'particlenet')."""
-    objectives = {"graphmet": graphmet_objective, "drn": drn_objective,
-                  "particlenet": particlenet_objective}
-    if family not in objectives:
-        raise ValueError(f"unknown model family {family!r}")
-    return objectives[family](cfg)
-
-
 def make_train_step(cfg: Config, objective: Optional[Callable] = None
                     ) -> Callable:
     """The train step of ``_step`` on ``objective`` (default GraphMET's)."""
@@ -241,25 +231,12 @@ def eval_step_terms(cfg: Config) -> Callable:
     return terms
 
 
-def eval_step_body(cfg: Config) -> Callable:
-    """``(model, batch) -> (v_met [B, 2], loss, weights)`` of
-    ``eval_step_terms``, the loss ``loss_fn``'s."""
-    terms = eval_step_terms(cfg)
-
-    def eval_step(model: GraphMET, batch: EventBatch):
-        v_met, total, n, w = terms(model, batch)
-        return v_met, 0.5 * total / torch.clamp(n, min=1), w
-
-    return eval_step
-
-
-def make_eval_step(cfg: Config) -> Callable:
-    """The evaluation step under ``torch.no_grad()`` with the model in eval
-    mode (running BatchNorm statistics)."""
-    body = eval_step_body(cfg)
-
+def _eval_step(body: Callable) -> Callable:
+    """``body(model, batch) -> (v_met [B, 2], loss, weights or None)`` as
+    an evaluation step: under ``torch.no_grad()``, the model in eval mode
+    (running BatchNorm statistics)."""
     @torch.no_grad()
-    def eval_step(model: GraphMET, batch: EventBatch):
+    def eval_step(model, batch: EventBatch):
         with annotate("step.eval"):
             model.eval()
             return body(model, batch)
@@ -267,32 +244,30 @@ def make_eval_step(cfg: Config) -> Callable:
     return eval_step
 
 
-def make_pn_eval_step(cfg: Config) -> Callable:
-    """ParticleNet's evaluation step ``(model, batch) -> (v_met [B, 2],
-    loss, None)`` under ``torch.no_grad()`` with the model in eval mode,
-    in the slots of GraphMET's step."""
-    @torch.no_grad()
-    def eval_step(model, batch: EventBatch):
-        with annotate("step.eval"):
-            model.eval()
-            pred = particlenet_net_apply(model, batch)
-            return (drn_met_vector(pred, "cartesian"),
-                    drn_loss_fn(pred, batch, "cartesian"), None)
+def make_eval_step(cfg: Config) -> Callable:
+    """GraphMET's evaluation step: ``eval_step_terms``, the loss
+    ``loss_fn``'s."""
+    terms = eval_step_terms(cfg)
 
-    return eval_step
+    def body(model: GraphMET, batch: EventBatch):
+        v_met, total, n, w = terms(model, batch)
+        return v_met, 0.5 * total / torch.clamp(n, min=1), w
+
+    return _eval_step(body)
 
 
-def make_drn_eval_step(cfg: Config) -> Callable:
-    """The DRN's evaluation step ``(model, batch) -> (v_met [B, 2], loss,
-    None)`` under ``torch.no_grad()`` with the model in eval mode: the
-    cartesian MET estimate, ``drn_loss_fn`` and no per-candidate weights,
-    in the slots of GraphMET's step."""
-    @torch.no_grad()
-    def eval_step(model, batch: EventBatch):
-        with annotate("step.eval"):
-            model.eval()
-            pred = drn_net_apply(model, batch)
-            return (drn_met_vector(pred, cfg.drn.head),
-                    drn_loss_fn(pred, batch, cfg.drn.head), None)
+def make_drn_eval_step(cfg: Config, apply: Callable = drn_net_apply,
+                       head: Optional[str] = None) -> Callable:
+    """The evaluation step of a family whose model regresses the MET vector
+    itself (the DRN; ParticleNet with its ``apply`` and head 'cartesian'):
+    the MET of ``apply(model, batch)`` under ``head`` (default
+    ``cfg.drn.head``), ``drn_loss_fn`` and no per-candidate weights, in the
+    slots of GraphMET's step."""
+    head = head or cfg.drn.head
 
-    return eval_step
+    def body(model, batch: EventBatch):
+        pred = apply(model, batch)
+        return (drn_met_vector(pred, head), drn_loss_fn(pred, batch, head),
+                None)
+
+    return _eval_step(body)

@@ -557,7 +557,7 @@ def test_build_dyn_graph_want_mirror_matches_jax():
 
 
 def test_drn_data_init_matches_jax(tmp_path):
-    """``cli.train``'s datanorm and output scale from the training split
+    """The train CLI's datanorm and output scale from the training split
     against the numbers the JAX CLI hands to ``drn_init``; the polar head's
     MET bias (softplus⁻¹) against ``drn_init``'s."""
     import contextlib
@@ -569,7 +569,7 @@ def test_drn_data_init_matches_jax(tmp_path):
     from deepmetv2_tpu.cli import train as j_train
     from deepmetv2_tpu.config import DRNConfig as JDRNConfig
     from deepmetv2_tpu.models import drn as jdrn
-    from deepmetv2_tpu_torch.cli.train import drn_data_init
+    from deepmetv2_tpu_torch.train.family import drn_data_init
     from deepmetv2_tpu_torch.config import DRNConfig
     from deepmetv2_tpu_torch.data import fetch_dataloader, synthetic_events
     from deepmetv2_tpu_torch.models.drn import DRN
@@ -654,6 +654,7 @@ def test_train_cli_drn_runs_on_cpu_and_resumes(tmp_path):
 
     from deepmetv2_tpu_torch.cli import train as train_cli
     from deepmetv2_tpu_torch.data import fetch_dataloader, synthetic_events
+    from deepmetv2_tpu_torch.train import family
 
     ck = str(tmp_path / "ck")
     base = ["--model", "drn", "--drn_head", "cartesian", "--synthetic", "10",
@@ -675,5 +676,5 @@ def test_train_cli_drn_runs_on_cpu_and_resumes(tmp_path):
     assert not cfg["graph"]["presorted"]
     ld = fetch_dataloader(events=synthetic_events(10, seed=42),
                           batch_size=4)["train"]
-    assert cfg["drn"]["output_scale"] == train_cli.drn_data_init(
+    assert cfg["drn"]["output_scale"] == family.drn_data_init(
         ld.dataset, ld.indices)[1]
