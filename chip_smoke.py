@@ -1669,6 +1669,111 @@ def kernel_knn_phase(device, model, batch):
          "bound_by": te["extract_bound"][1]}]
 
 
+def cut_match_bound(nbr, mask, H: int):
+    """The list matching's bound from this run's lists: h, the lists (idx
+    and slot mask) and the node mask read once, cluster and partner
+    written once; 3·H operations (a subtraction, a multiply, an add) per
+    valid slot."""
+    B, N, cap = nbr.idx.shape
+    return bound(B * N * (4 * H + 5 * cap + 1 + 16),
+                 3 * H * int(nbr.mask.sum()))
+
+
+def kernel_cut_match_phase(device, model):
+    """The list matching's kernels (csrc/cut_match.cu) at drn-infer-cms's
+    shapes, 40 events of knn_cell_case at N=8192 and 6144 with their kNN
+    lists: the weights against their formula in f64 (rtol 1e-6), the
+    handshake bitwise against handshake_matching on the kernel's weights,
+    the same bits over a second call and a graph replay, ms against the
+    bound and the plain version; then a DRN forward of such a batch, whose
+    two rounds must each go through the kernels once."""
+    import torch
+    from deepmetv2_tpu_torch.data import synthetic_events, to_device
+    from deepmetv2_tpu_torch.data.batching import collate
+    from deepmetv2_tpu_torch.models.drn import drn_net_apply
+    from deepmetv2_tpu_torch.ops.coarsen import (handshake_matching,
+                                                 normalized_cut_weights)
+    from deepmetv2_tpu_torch.ops.cuda import cut_match as cm
+    from deepmetv2_tpu_torch.ops.cuda.cut_match import cut_match
+    from deepmetv2_tpu_torch.ops.cuda.knn_und import knn_und_graph
+    from deepmetv2_tpu_torch.probes.knn_breakdown import (BATCH, CELL_COUNTS,
+                                                          CELL_NS, CELL_SEED)
+
+    out, worst = {}, 0.0
+    for N in CELL_NS:
+        h, mask = knn_cell_case(device, N)
+        nbr, _, _ = knn_und_graph(h, mask, k=DRN_K, cap=DRN_CAP)
+        gen = torch.Generator(device=device).manual_seed(N)
+        proj = torch.randn((64, 64), generator=gen, device=device) / 8.0
+        hp = torch.where(mask[..., None], torch.tanh(h @ proj), 0.0)
+        cm._check(nbr, mask, hp)
+        w = cm._weights(hp, nbr)
+        for b in range(hp.shape[0]):
+            hb, idx = hp[b].double(), nbr.idx[b].long()
+            ivd = 1.0 / nbr.mask[b].sum(-1).double().clamp(min=1.0)
+            ref = ((hb[:, None] - hb[idx]).pow(2).sum(-1).sqrt()
+                   * (ivd[:, None] + ivd[idx]))
+            v = nbr.mask[b]
+            rel = ((w[b][v].double() - ref[v]).abs()
+                   / ref[v].abs().clamp(min=1e-300))
+            if rel.numel():
+                worst = max(worst, float(rel.max()))
+            if not torch.equal(torch.isneginf(w[b]), ~v):
+                fail(f"cut_match's weights (N={N}): an invalid slot is not -inf or "
+                     "a valid one is")
+        if worst > 1e-6:
+            fail(f"cut_match's weights (N={N}): {worst} from the f64 formula, over "
+                 "1e-6")
+        want = handshake_matching(w, nbr, mask)
+        got = cut_match(hp, nbr, mask)
+        half = cm._handshake(w, nbr, mask, 4)
+        again = cut_match(hp, nbr, mask)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = cut_match(hp, nbr, mask)
+        graph.replay()
+        torch.cuda.synchronize()
+        for what, pair in (("the kernels", got), ("the handshake", half),
+                           ("a second call", again), ("a replay", replayed)):
+            if not all(torch.equal(a, b) for a, b in zip(pair, want)):
+                fail(f"cut_match (N={N}): {what} differs from "
+                     "handshake_matching on the kernel's weights")
+        iota = torch.arange(N, device=device).expand_as(mask)
+        bnd = cut_match_bound(nbr, mask, hp.shape[-1])
+        out[N] = dict(
+            ms=cuda_ms(lambda: cut_match(hp, nbr, mask), 20),
+            weights_ms=cuda_ms(lambda: cm._weights(hp, nbr), 20),
+            handshake_ms=cuda_ms(lambda: cm._handshake(w, nbr, mask, 4), 20),
+            plain_ms=cuda_ms(lambda: handshake_matching(
+                normalized_cut_weights(hp, nbr), nbr, mask), 3),
+            bound=bnd, real_rows=int(mask.sum()),
+            valid_slots=int(nbr.mask.sum()),
+            paired=int((want[1] != iota).sum()))
+        del h, hp, nbr, w, graph
+    events = synthetic_events(BATCH, seed=CELL_SEED, n_min=CELL_COUNTS[0],
+                              n_max=CELL_COUNTS[1])
+    batch = to_device(collate(events, pad_to=CELL_NS[0]), device)
+    cut_match.launches = 0
+    with torch.no_grad():
+        met = drn_net_apply(model, batch)
+    main = cut_match.launches
+    torch.cuda.synchronize()
+    if main != model.cfg.pool_rounds or not bool(torch.isfinite(met).all()):
+        fail(f"a DRN forward at B={BATCH}, N={CELL_NS[0]} launched cut_match "
+             f"{main} times, not {model.cfg.pool_rounds}, or gave a "
+             "non-finite MET")
+    say("kernel_cut_match", name="cut_match",
+        cases="weights within 1e-6 of f64; handshake, second call and graph "
+              "replay bitwise equal handshake_matching on the kernel's "
+              "weights", shape=[BATCH, list(CELL_NS), 64], cap=DRN_CAP,
+        weights_rel_err=worst, main_path_launches=main, times=out,
+        card=CARD)
+    t = out[CELL_NS[0]]
+    return main, {"max_rel_err": worst, "ms": t["ms"],
+                  "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                  "bound_by": t["bound"][1]}
+
+
 # edge_mlp_fwd / edge_mlp_bwd ms of the kernels' first design (one warp per
 # node, the first layer per edge, weight gradients folded through shared
 # memory) at the shapes this script times them, on an H100 80GB HBM3 at
@@ -1779,11 +1884,12 @@ def evaluate_drn_phase(device, work: str, model, cfg):
     import numpy as np
     import torch
     from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
+    from deepmetv2_tpu_torch.ops.cuda.cut_match import cut_match
     from deepmetv2_tpu_torch.ops.cuda.edgeconv_window import window_max
 
     ck = ckpt_copy(work, "drn", DRN_CKPTS)
     counters = drn_counters()
-    for fn in list(counters.values()) + [window_max]:
+    for fn in list(counters.values()) + [window_max, cut_match]:
         fn.launches = 0
     t = time.perf_counter()
     loss = evaluate_cli.run(["--model", "drn", "--synthetic", "2000",
@@ -1791,6 +1897,7 @@ def evaluate_drn_phase(device, work: str, model, cfg):
     torch.cuda.synchronize()
     sec = time.perf_counter() - t
     launches = {k: fn.launches for k, fn in counters.items()}
+    listed = cut_match.launches
 
     ld = drn_val_loader(cfg, 8)
     losses, met, graphs = drn_eval_pass(model, ld, device)
@@ -1803,12 +1910,15 @@ def evaluate_drn_phase(device, work: str, model, cfg):
         loss_first_design=DRN_LOSS_FIRST_DESIGN,
         same_as_first_design=loss == DRN_LOSS_FIRST_DESIGN,
         jax_tpu_run_loss_not_a_gate=JAX_TPU_DRN_LOSS, launches=launches,
-        window_max_launches=window_max.launches, seconds=sec,
+        window_max_launches=window_max.launches, cut_match_launches=listed,
+        seconds=sec,
         checked_pass_loss=pass_loss, cli_rel_err=cli_rel)
     want = 2 * len(ld)
-    if launches != {k: want for k in counters} or window_max.launches:
-        fail(f"DRN evaluate launched {launches} and window_max "
-             f"{window_max.launches} times; want {want} each and 0")
+    if (launches != {k: want for k in counters} or window_max.launches
+            or listed):
+        fail(f"DRN evaluate launched {launches}, window_max "
+             f"{window_max.launches} and cut_match {listed} times; want "
+             f"{want} each, 0 and 0 (N <= 2048: the dense matching)")
     if not cli_rel <= DRN_CLI_RTOL:
         fail(f"DRN evaluate CLI loss {loss} is {cli_rel} from the checked "
              f"pass's {pass_loss}, not within {DRN_CLI_RTOL}")
@@ -1819,9 +1929,10 @@ def predict_drn_phase(work: str):
     import numpy as np
     import torch
     from deepmetv2_tpu_torch.cli import predict as predict_cli
+    from deepmetv2_tpu_torch.ops.cuda.cut_match import cut_match
 
     counters = drn_counters()
-    for fn in counters.values():
+    for fn in list(counters.values()) + [cut_match]:
         fn.launches = 0
     out = os.path.join(work, "pred_drn.npz")
     t = time.perf_counter()
@@ -1830,16 +1941,18 @@ def predict_drn_phase(work: str):
     torch.cuda.synchronize()
     sec = time.perf_counter() - t
     launches = {k: fn.launches for k, fn in counters.items()}
+    listed = cut_match.launches
     z = np.load(out)
     say("predict_drn", events=int(len(z["met"])), launches=launches,
-        seconds=sec, keys=sorted(z.files), met_mean=float(np.mean(z["met"])))
+        cut_match_launches=listed, seconds=sec, keys=sorted(z.files), met_mean=float(np.mean(z["met"])))
     if len(z["met"]) != 2000 or not np.array_equal(z["event_index"],
                                                    np.arange(2000)):
         fail("DRN predict did not return 2000 events in input order")
     if not np.all(np.isfinite(z["met"])) or "weights" in z.files:
         fail("DRN predict returned non-finite MET or per-candidate weights")
-    if launches != {k: 2 * 50 for k in counters}:
-        fail(f"DRN predict launched {launches}; want 100 of each")
+    if launches != {k: 2 * 50 for k in counters} or listed:
+        fail(f"DRN predict launched {launches} and cut_match {listed} "
+             "times; want 100 of each and 0 (N <= 2048: the dense matching)")
     return launches
 
 
@@ -2384,6 +2497,7 @@ def drn_train_phase(work: str):
     import torch
     from deepmetv2_tpu_torch.cli import evaluate as evaluate_cli
     from deepmetv2_tpu_torch.cli import train as train_cli
+    from deepmetv2_tpu_torch.ops.cuda.cut_match import cut_match
 
     ck = os.path.join(work, "drn_train")
     base = ["--model", "drn", "--drn_head", "cartesian", "--synthetic", "2000",
@@ -2395,7 +2509,7 @@ def drn_train_phase(work: str):
     total = {k: 0 for k in counters}
     for argv, epochs in ((["--epochs", "2"], 2),
                          (["--epochs", "3", "--restore_file", "last"], 1)):
-        for fn in counters.values():
+        for fn in list(counters.values()) + [cut_match]:
             fn.launches = 0
         out = io.StringIO()
         t = time.perf_counter()
@@ -2404,20 +2518,23 @@ def drn_train_phase(work: str):
         torch.cuda.synchronize()
         sec = time.perf_counter() - t
         launches = {k: fn.launches for k, fn in counters.items()}
+        listed = cut_match.launches
         text = out.getvalue()
         lines = [ln for ln in text.splitlines()
                  if ln.startswith(("drn:", "feed:", "Training epoch",
                                    "- Eval", "Restarting"))]
         say("drn_train", argv=argv, seconds=sec, launches=launches,
-            epoch_seconds=epoch_seconds(text), log=lines)
+            cut_match_launches=listed, epoch_seconds=epoch_seconds(text), log=lines)
         if rc != 0:
             fail(f"DRN train CLI {argv} exited {rc}")
         check_feed_line("DRN train CLI", text)
         fwd = epochs * (steps + DRN_REFRESH + evals) * rounds
         want = {k: fwd for k in drn_counters()}
         want["edge_mlp_bwd"] = epochs * steps * rounds
-        if launches != want:
-            fail(f"DRN train CLI {argv}: launches {launches}, want {want}")
+        if launches != want or listed:
+            fail(f"DRN train CLI {argv}: launches {launches} and cut_match "
+                 f"{listed}, want {want} and 0 (N <= 2048: the dense "
+                 "matching)")
         for k, v in launches.items():
             total[k] += v
     for f in ("loss.log", "metrics_val_best.json", "metrics_val_last.json",
@@ -3964,7 +4081,7 @@ def drn_replay_steps(resumed, tcfg, hosts, replay, losses, states, device):
         step = make_train_step(tcfg, lambda m, b: drn_loss_fn(
             tdrn.drn_net_apply(m, b, knn_fn=lambda h, mask: next(knn)), b,
             tcfg.drn.head))
-        with mock.patch.object(tdrn, "handshake_matching",
+        with mock.patch.object(tdrn, "list_matching",
                                lambda *a, **kw: next(pairs)):
             loss = float(step(model, opt, to_device(host, device)))
         rel.append(abs(loss - losses[i]) / abs(loss))
@@ -4115,7 +4232,7 @@ def mesh_drn_ep_rank(device):
 
     m_ep, opt = resumed()
     step = mesh_train_step(tcfg, "drn", mesh, shard_nodes=True)
-    match, build = tdrn.handshake_matching, tdyn.knn_graph_sharded
+    match, build = tdrn.list_matching, tdyn.knn_graph_sharded
     step_s = []
     trace_dir = os.path.join(HERE, "build", "smoke", "mesh",
                              f"trace_rank{mesh.rank}")
@@ -4124,8 +4241,8 @@ def mesh_drn_ep_rank(device):
     for i, host in enumerate(hosts):
         rounds, lists = [], []
 
-        def recorded(w, nbr, mask, *a, **kw):
-            cluster, partner = match(w, nbr, mask, *a, **kw)
+        def recorded(h, nbr, mask, *a, **kw):
+            cluster, partner = match(h, nbr, mask, *a, **kw)
             rounds.append((mask, nbr.idx, nbr.mask, cluster, partner))
             return cluster, partner
 
@@ -4137,7 +4254,7 @@ def mesh_drn_ep_rank(device):
 
         b = to_device(shard_batch(host, mesh, True), device)
         last = i == len(hosts) - 1
-        with mock.patch.object(tdrn, "handshake_matching", recorded), \
+        with mock.patch.object(tdrn, "list_matching", recorded), \
                 mock.patch.object(tdyn, "knn_graph_sharded", built), \
                 (profiling.trace(trace_dir) if last
                  else contextlib.nullcontext()) as prof:
@@ -4438,7 +4555,8 @@ def mesh_drn_cli_phase(device, work: str) -> None:
     1x2 --ring_knn for 1 epoch on DRN_EP_CLI_EVENTS synthetic events, as a
     user starts it (it spawns its 2 ranks, which share this card through
     gloo): its mesh line, each rank's launches those of the fused conv
-    (the backward's as many as the forward's, no graph kernel), and
+    and of the list matching (the conv's backward and the matching as many
+    as the conv's forward, no kNN kernel: the ring builds the graph), and
     best.ckpt re-evaluated within REEVAL_RTOL by the single-device
     evaluation of the path the mesh evaluates with (DRN_MESH_FORCES).
     Returns the fused conv's launches summed over the ranks."""
@@ -4499,9 +4617,11 @@ def mesh_drn_cli_phase(device, work: str) -> None:
         fwd = c["edge_mlp_fwd"]
         if not (fwd > 0 and fwd % cfg.drn.pool_rounds == 0
                 and {k: v for k, v in c.items() if v} == {
-                    "edge_mlp_fwd": fwd, "edge_mlp_bwd": fwd}):
+                    "edge_mlp_fwd": fwd, "edge_mlp_bwd": fwd,
+                    "cut_match": fwd}):
             fail(f"train CLI --model drn --mesh 1x2: a rank launched "
-                 f"{counts}, want edge_mlp_fwd and edge_mlp_bwd alike")
+                 f"{counts}, want edge_mlp_fwd, edge_mlp_bwd and cut_match "
+                 "alike")
     if not rel <= REEVAL_RTOL:
         fail(f"the --mesh 1x2 DRN run's best.ckpt re-evaluates to {got}, "
              f"not within {REEVAL_RTOL} of its metrics_val_best.json {best}")
@@ -5138,6 +5258,7 @@ def main() -> int:
     drn, drn_cfg = drn_model(device)
     drn_batch = to_device(next(iter(drn_val_loader(drn_cfg, DRN_B))), device)
     (h_a, _), knn = kernel_knn_phase(device, drn, drn_batch)
+    cut_main, cut = kernel_cut_match_phase(device, drn)
     emlp = kernel_edge_mlp_phase(device, drn, h_a, drn_batch.mask)
     del h_a, drn_batch
 
@@ -5238,7 +5359,10 @@ def main() -> int:
             "launches": pn_main["pn_edge_fwd"]}, **pn_fwd), dict({
             "name": "pn_edge_bwd", "route": "cuda",
             "source": src + "pn_edge.cu", "replaces": None,
-            "launches": pn_main["pn_edge_bwd"]}, **pn_bwd)]}),
+            "launches": pn_main["pn_edge_bwd"]}, **pn_bwd), dict({
+            "name": "cut_match", "route": "cuda",
+            "source": src + "cut_match.cu", "replaces": None,
+            "launches": cut_main}, **cut)]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -55,11 +55,10 @@ from deepmetv2_tpu_torch.models.layout import JaxLayout
 from deepmetv2_tpu_torch.nn.core import (MLP, MaskedBatchNorm, elu,
                                          masked_moments)
 from deepmetv2_tpu_torch.ops import edge_mlp
-from deepmetv2_tpu_torch.ops.coarsen import (global_max_pool,
-                                             handshake_matching, max_pool,
-                                             normalized_cut_weights)
+from deepmetv2_tpu_torch.ops.coarsen import global_max_pool, max_pool
 from deepmetv2_tpu_torch.ops.cuda.edge_mlp import edge_mlp_conv
-from deepmetv2_tpu_torch.ops.dyn_graph import build_dyn_graph, cut_matching
+from deepmetv2_tpu_torch.ops.dyn_graph import (build_dyn_graph, cut_matching,
+                                               list_matching)
 from deepmetv2_tpu_torch.ops.graph import to_undirected
 from deepmetv2_tpu_torch.ops.segment import (batched_take, gather_neighbors,
                                              gather_neighbors_mirror)
@@ -290,8 +289,7 @@ def _listed_round(conv: DRNConv, h: torch.Tensor, mask: torch.Tensor,
         h = _drn_edgeconv(conv, h, nbr, cfg.aggr, train, force=conv_force)
     with annotate("graph.match"):
         # the graph is discrete: no gradient through the matching's weights
-        w = normalized_cut_weights(h.detach(), nbr)
-        cluster, partner = handshake_matching(w, nbr, mask)
+        cluster, partner = list_matching(h.detach(), nbr, mask)
     if diag is not None:
         diag.setdefault("rounds", []).append((mask, nbr, cluster, partner))
     with annotate("graph.pool"):

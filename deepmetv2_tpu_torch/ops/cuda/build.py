@@ -28,7 +28,8 @@ from typing import Callable, Dict, Iterable, Sequence
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 BUILD_DIR = DEFAULT_BUILD_DIR     # utils/cache.py:enable_compilation_cache
-KERNELS = ("window_max", "knn_und", "edge_mlp", "cat_embed", "pn_edge")
+KERNELS = ("window_max", "knn_und", "edge_mlp", "cat_embed", "pn_edge",
+           "cut_match")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -21,6 +21,9 @@ weights.  Two builds, as in the JAX package:
   the lists and its weights are the pairwise ones; above, the list
   matching.
 
+The list matching (``list_matching``) runs as ops/cuda/cut_match.py's
+kernels on the card and as their plain version on the CPU.
+
 ``want_mirror`` (``mirror_gather``) adds the lists' mirror-slot table; on
 the fused build it also keeps only the listed edges whose reverse edge is
 listed, which makes the list symmetric (the composed list is symmetric by
@@ -36,9 +39,8 @@ from typing import Optional
 import torch
 
 from deepmetv2_tpu_torch.data.batching import Neighborhood
-from deepmetv2_tpu_torch.ops.coarsen import (handshake_matching,
-                                             handshake_matching_dense,
-                                             normalized_cut_weights)
+from deepmetv2_tpu_torch.ops.coarsen import handshake_matching_dense
+from deepmetv2_tpu_torch.ops.cuda import cut_match as list_kernels
 from deepmetv2_tpu_torch.ops.cuda.knn_und import knn_und_graph
 from deepmetv2_tpu_torch.ops.graph import knn_graph, to_undirected
 from deepmetv2_tpu_torch.ops.knn_und import supported
@@ -138,6 +140,15 @@ def _tiled_cut_weights(rel: torch.Tensor, h: torch.Tensor,
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
 
 
+def list_matching(h: torch.Tensor, nbr: Neighborhood, mask: torch.Tensor,
+                  rounds: int = 4):
+    """The handshake matching on the neighbour lists ``nbr`` with their
+    normalized-cut weights from ``h``: ``(cluster, partner)``, by
+    ops/cuda/cut_match.py (the kernels on the card, their plain
+    composition on the CPU)."""
+    return list_kernels.cut_match(h, nbr, mask, rounds=rounds)
+
+
 def cut_matching(g: DynGraph, h: torch.Tensor, mask: torch.Tensor,
                  rounds: int = 4):
     """Normalized-cut-weighted handshake matching on ``g`` with the
@@ -147,7 +158,8 @@ def cut_matching(g: DynGraph, h: torch.Tensor, mask: torch.Tensor,
     graph's, up to ``DENSE_MATCH_MAX_N`` nodes, the relation of its lists
     (JAX dyn_graph.py:238-262: the degree is the list's, which equals the
     relation's row count since a list is distinct, and the distances the
-    pairwise |a|² + |b|² − 2a·b); otherwise the lists."""
+    pairwise |a|² + |b|² − 2a·b); otherwise the lists
+    (``list_matching``)."""
     h = h.detach()
     N = mask.shape[1]
     if g.rel is not None:
@@ -157,5 +169,4 @@ def cut_matching(g: DynGraph, h: torch.Tensor, mask: torch.Tensor,
     if N <= DENSE_MATCH_MAX_N:
         W = _tiled_cut_weights(_list_relation(g.nbr), h, N)
         return handshake_matching_dense(W, mask, rounds=rounds)
-    w = normalized_cut_weights(h, g.nbr)
-    return handshake_matching(w, g.nbr, mask, rounds=rounds)
+    return list_matching(h, g.nbr, mask, rounds=rounds)
